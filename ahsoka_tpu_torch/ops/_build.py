@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
+``build/ahsoka_tpu_torch/lib<name>.so`` at the repository root (the
+``build/`` directory is git-ignored).  The library is built at first use
+and rebuilt when its source is newer, so a fresh checkout needs nothing
+but the CUDA toolkit.  Sources never include PyTorch's headers: pointers
+and the CUDA stream cross the boundary as ``c_void_p`` from
+``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``,
+which keeps a build to seconds.
+
+``--fmad=false`` keeps every float add and multiply a separately rounded
+IEEE operation, the way the plain PyTorch versions round them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(_PKG)
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_REPO, "build", "ahsoka_tpu_torch")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# seconds spent in nvcc by this process, per library (0.0 when the
+# library was already built and only loaded)
+build_seconds: Dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build from source "
+                       "and need the CUDA toolkit (nvcc on PATH or "
+                       "/usr/local/cuda/bin)")
+
+
+def _build(name: str, src: str, lib: str, extra_flags=()) -> float:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)          # atomic: a concurrent build never
+    return time.perf_counter() - t0   # load a half-written library
+
+
+def load(name: str, extra_flags=()) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so``, building it first when it is missing
+    or older than ``csrc/<name>.cu``."""
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = os.path.join(CSRC, f"{name}.cu")
+        lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
+        stale = (not os.path.exists(lib_path)
+                 or os.path.getmtime(lib_path) < os.path.getmtime(src))
+        build_seconds[name] = (_build(name, src, lib_path, extra_flags)
+                               if stale else 0.0)
+        lib = ctypes.CDLL(lib_path)
+        _LIBS[name] = lib
+        return lib
+

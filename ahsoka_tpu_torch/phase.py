@@ -1,0 +1,470 @@
+"""Per-chain phasing driver of the port: projection -> matrix -> scoring ->
+cluster editing -> threading DP -> emission, batched across chains.
+
+Counterpart of ``phase_all_chains_batched`` (``ahsoka_tpu/phase.py``).
+Pass 1 runs the batched projection pre-pass and builds every chain's
+allele matrix; pass 2 scores the dense chains in batched device calls
+and runs cluster editing; pass 3 threads all chains in batched DP calls
+and emits in the reference's size-sorted order.  Same outputs as the JAX
+driver.
+
+Device failures propagate: unlike the JAX package, no stage falls back
+from the device to another path.  ``keep_going`` keeps its documented
+behaviour (per-chain failures are recorded and the run continues; a
+failed batched DP is retried chain by chain, and logged).
+
+Not ported (raise ``NotImplementedError`` naming the ROADMAP item):
+banded scoring for chains above ``banded_scoring_threshold`` reads,
+data/chain sharding and multi-process chain sharding.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Tuple
+
+from ahsoka_tpu.cluster.editing import cluster_editing
+from ahsoka_tpu.cluster.postprocess import consensus_lookup
+from ahsoka_tpu.config import PhasingConfig
+from ahsoka_tpu.emit.result import emit_chain_result
+from ahsoka_tpu.phase import (_COLLAPSE_UNSET, _PRE_PASS_MAX_BUBBLES,
+                              _PRE_PASS_SLICE, ChainPhasingResult,
+                              _chain_collapse, _write_readset_debug_files,
+                              chain_config)
+from ahsoka_tpu.utils import substage
+from ahsoka_tpu.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def check_supported(config: PhasingConfig) -> None:
+    """Raise for configurations the port does not run yet."""
+    if config.process_chain_sharding:
+        raise NotImplementedError(
+            "multi-process chain sharding is not ported yet: ROADMAP "
+            "queue 1 item 11")
+    if config.data_shards > 1 or config.chain_shards > 1:
+        raise NotImplementedError(
+            "data_shards/chain_shards > 1 (sharded projection, scoring "
+            "and DP) are not ported yet: ROADMAP queue 1 item 11")
+
+
+def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
+                        config, result, columns=None, bucket=None,
+                        precomputed=None, device="cuda"):
+    """Chain pipeline through the allele matrix (projection + matrix
+    assembly + coverage cap).  Returns the AlleleMatrix, or None with
+    result.reason set."""
+    from ahsoka_tpu_torch.project.device import (
+        assemble_readsets, containment_key_tables, prepare_chain_inputs,
+        prepare_chain_inputs_from_columns)
+    from ahsoka_tpu_torch.project.matrix import (chain_matrix_from_keys,
+                                                 partial_sweep_from_stats)
+
+    marks = result.stage_seconds
+    t = time.perf_counter()
+    if precomputed is not None:
+        inputs, (full_k, part_k, gate_k) = precomputed
+        marks["prepare"] = time.perf_counter() - t
+    else:
+        if columns is not None:
+            if bucket is None or len(bucket.record_idx) == 0:
+                log.warning("No reads in ReadSet for chain %d!", chain_id)
+                result.reason = "empty filtered readset"
+                return None
+            inputs = prepare_chain_inputs_from_columns(bubble_paths,
+                                                       columns, bucket)
+        else:
+            inputs = prepare_chain_inputs(bubble_paths, alignments)
+        if inputs.num_alignments == 0 or inputs.num_paths == 0:
+            log.warning("No reads in ReadSet for chain %d!", chain_id)
+            result.reason = "empty filtered readset"
+            return None
+        marks["prepare"] = time.perf_counter() - t
+        t = time.perf_counter()
+        full_k, part_k, gate_k = containment_key_tables(inputs, config,
+                                                        device=device)
+        marks["projection"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with substage.timed("matrix.sweep"):
+        sweep = partial_sweep_from_stats(inputs, full_k, config)
+    with substage.timed("matrix.assemble"):
+        cm = chain_matrix_from_keys(inputs, part_k, gate_k, sweep, config)
+    matrix = cm.matrix
+    if not matrix.read_names:
+        marks["matrix"] = time.perf_counter() - t
+        log.warning("No reads in ReadSet for chain %d!", chain_id)
+        result.reason = "empty filtered readset"
+        return None
+    if config.debug_readset_files:
+        readsets = assemble_readsets(inputs, full_k, part_k, gate_k,
+                                     config)
+        _write_readset_debug_files(outstem, chain_id, readsets)
+    if config.max_coverage is not None:
+        from ahsoka_tpu.project.subsample import subsample_matrix
+        before = matrix.num_reads
+        with substage.timed("matrix.covcap"):
+            matrix, _ = subsample_matrix(matrix, config.max_coverage)
+        if matrix.num_reads < before:
+            log.info("chain %d: coverage cap kept %d/%d reads",
+                     chain_id, matrix.num_reads, before)
+    marks["matrix"] = time.perf_counter() - t
+    return matrix
+
+
+def _chain_cluster_dp_stage(matrix, config, result, scores=None,
+                            collapse=_COLLAPSE_UNSET, device="cuda"):
+    """Allele matrix -> DP inputs (dense scoring + cluster editing, plain
+    or over collapsed identical rows).  ``scores`` short-circuits the
+    device scoring when the batched pre-pass already computed it."""
+    from ahsoka_tpu.cluster.editing import assignment_from_clusters
+    from ahsoka_tpu.cluster.postprocess import build_dp_inputs_from_matrix
+    from ahsoka_tpu_torch.score.device import score_pairs_device
+
+    marks = result.stage_seconds
+    if collapse is _COLLAPSE_UNSET:
+        t = time.perf_counter()
+        collapse = _chain_collapse(matrix, config)
+        marks["collapse"] = time.perf_counter() - t
+    effective_rows = (collapse.num_groups if collapse is not None
+                      else matrix.num_reads)
+    if effective_rows > config.banded_scoring_threshold:
+        raise NotImplementedError(
+            f"a chain with {effective_rows} effective reads needs banded "
+            f"scoring (above banded_scoring_threshold="
+            f"{config.banded_scoring_threshold}), which is not ported "
+            "yet: ROADMAP queue 1 item 9")
+    if collapse is not None:
+        from ahsoka_tpu.project.collapse import expand_clusters
+        import numpy as np
+
+        t = time.perf_counter()
+        if scores is None:
+            scores = score_pairs_device(collapse.matrix, config,
+                                        mult=collapse.mult, device=device)
+        # weighted group graph: edge weight m_u * m_v * s(u, v)
+        w = scores * np.outer(collapse.mult, collapse.mult)
+        np.fill_diagonal(w, 0.0)
+        marks["scoring"] = marks.get("scoring", 0.0) \
+            + (time.perf_counter() - t)
+        t = time.perf_counter()
+        with substage.timed("clustering.solver"):
+            group_clusters = cluster_editing(w, mode=config.ce_mode)
+        with substage.timed("clustering.expand"):
+            clusters = expand_clusters(group_clusters, collapse.inverse)
+        marks["clustering"] = time.perf_counter() - t
+    else:
+        t = time.perf_counter()
+        if scores is None:
+            scores = score_pairs_device(matrix, config, device=device)
+        marks["scoring"] = marks.get("scoring", 0.0) \
+            + (time.perf_counter() - t)
+        t = time.perf_counter()
+        with substage.timed("clustering.solver"):
+            clusters = cluster_editing(scores, mode=config.ce_mode)
+        marks["clustering"] = time.perf_counter() - t
+    cluster_of = assignment_from_clusters(clusters, matrix.num_reads)
+    dp = build_dp_inputs_from_matrix(matrix.alleles, matrix.positions,
+                                     cluster_of, config)
+    result.num_reads = matrix.num_reads
+    result.num_clusters = len(clusters)
+    result.num_positions = dp.num_positions
+    return dp
+
+
+def _dp_frontier_width(config: PhasingConfig, S: int) -> int:
+    from ahsoka_tpu_torch.thread.dp_torch import _beam_width_for
+    return _beam_width_for(config, S) or S
+
+
+def _projection_pre_pass(art, work, config, columns, device
+                         ) -> Tuple[Dict[int, tuple], float]:
+    """Batched projection for every pre-pass chain (<= 512 bubbles), in
+    slices of 256 chains so one slice's padded inputs are live at a time.
+    Returns ({chain_id: (inputs, key tables)}, seconds per chain)."""
+    from ahsoka_tpu_torch.project.device import (
+        containment_key_tables_many, prepare_chain_inputs,
+        prepare_chain_inputs_from_columns)
+
+    pre: Dict[int, tuple] = {}
+    t_pre = time.perf_counter()
+    todo = [chain_id for _size, chain_id in work
+            if 1 < len(art.allele_paths[chain_id]) <= _PRE_PASS_MAX_BUBBLES]
+    for s0 in range(0, len(todo), _PRE_PASS_SLICE):
+        cand = []
+        for chain_id in todo[s0:s0 + _PRE_PASS_SLICE]:
+            bubble_paths = art.allele_paths[chain_id]
+            # a chain whose host prep fails here takes the per-chain path
+            # in pass 1, where its error is recorded (keep_going) or raised
+            try:
+                if columns is not None:
+                    bucket = (art.chain_buckets.get(chain_id)
+                              if art.chain_buckets is not None else None)
+                    if bucket is None or len(bucket.record_idx) == 0:
+                        continue
+                    inputs = prepare_chain_inputs_from_columns(
+                        bubble_paths, columns, bucket)
+                else:
+                    inputs = prepare_chain_inputs(
+                        bubble_paths, art.alignments.chain_alignments(chain_id))
+            except Exception:          # noqa: BLE001
+                continue
+            if inputs.num_alignments == 0 or inputs.num_paths == 0:
+                continue
+            cand.append((chain_id, inputs))
+        if not cand:
+            continue
+        tables = containment_key_tables_many([inp for _, inp in cand],
+                                             config, device=device)
+        for (cid, inp), tab in zip(cand, tables):
+            if not config.debug_readset_files:
+                # the kernel consumed the one-hots; the matrix stage
+                # reads only ids/identities/names
+                inp.path_onehot_full = None
+                inp.path_onehot_inner = None
+            pre[cid] = (inp, tab)
+    share = (time.perf_counter() - t_pre) / max(len(pre), 1) if pre else 0.0
+    return pre, share
+
+
+def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
+                             resume: bool = False, keep_going: bool = False,
+                             device="cuda") -> List[ChainPhasingResult]:
+    """Batched driver: pass 1 runs every chain up to its allele matrix,
+    pass 2 scores and clusters, pass 3 threads all chains batched and
+    emits in size-sorted order.  ``device`` is the torch device of the
+    projection, scoring and DP stages."""
+    from ahsoka_tpu.thread.dp_host import assign_rows
+    from ahsoka_tpu.thread.states import max_states
+    from ahsoka_tpu_torch.score.device import score_pairs_device_many
+    from ahsoka_tpu_torch.thread.dp_torch import (thread_chain_device,
+                                                  thread_chains_batched)
+
+    check_supported(config)
+    columns = getattr(art, "gaf_columns", None)
+
+    # resume decisions are serial and cheap; output order is the
+    # deterministic size_sorting order
+    work: List[Tuple[int, int]] = []        # (size, chain_id)
+    slots: List = []                        # records in size_sorting order
+    for size, chain_id in art.size_sorting:
+        chain_file = f"{outstem}-chain{chain_id}-result.txt"
+        if resume and os.path.exists(chain_file):
+            res = ChainPhasingResult(chain_id=chain_id, num_bubbles=size,
+                                     skipped=False, resumed=True)
+            slots.append(("resumed", res, chain_file))
+        else:
+            slots.append(len(work))         # placeholder index
+            work.append((size, chain_id))
+
+    pre, pre_share = ({}, 0.0)
+    if work:
+        pre, pre_share = _projection_pre_pass(art, work, config, columns,
+                                              device)
+
+    def matrix_one(size, chain_id):
+        """Pass-1 body: chain -> ("skipped", res, None) or
+        ("matrix", res, (chain_id, bubble_paths, matrix, cm, ccfg))."""
+        res = ChainPhasingResult(chain_id=chain_id, num_bubbles=size,
+                                 skipped=True)
+        ccfg = chain_config(config, chain_id)
+        t0 = time.perf_counter()
+        bubble_paths = art.allele_paths[chain_id]
+        if len(bubble_paths) <= 1:
+            res.reason = "chain has <= 1 bubble"
+            res.seconds = time.perf_counter() - t0
+            return ("skipped", res, None)
+        bucket = (art.chain_buckets.get(chain_id)
+                  if getattr(art, "chain_buckets", None) is not None
+                  else None)
+        try:
+            matrix = _chain_matrix_stage(
+                chain_id, bubble_paths,
+                (art.alignments.chain_alignments(chain_id)
+                 if columns is None else None),
+                outstem, ccfg, res, columns=columns, bucket=bucket,
+                precomputed=pre.get(chain_id), device=device)
+            if chain_id in pre:
+                res.stage_seconds["projection"] = pre_share
+        except Exception as exc:
+            if not keep_going:
+                raise
+            log.error("chain %d failed: %s", chain_id, exc)
+            res.reason, res.error = "error", str(exc)
+            res.seconds = time.perf_counter() - t0
+            return ("skipped", res, None)
+        res.seconds = time.perf_counter() - t0
+        if matrix is None:
+            return ("skipped", res, None)
+        t1 = time.perf_counter()
+        try:
+            cm = _chain_collapse(matrix, ccfg)
+        except Exception as exc:
+            if not keep_going:
+                raise
+            # an uncollapsed chain is slower, not wrong
+            log.error("chain %d collapse failed (%s); continuing "
+                      "uncollapsed", chain_id, exc)
+            cm = None
+        res.stage_seconds["collapse"] = time.perf_counter() - t1
+        res.seconds += res.stage_seconds["collapse"]
+        return ("matrix", res, (chain_id, bubble_paths, matrix, cm, ccfg))
+
+    def cluster_one(entry, scores=None):
+        """Pass-2 body: ("matrix", ...) -> ("skipped"/"compute", ...)."""
+        kind, res, payload = entry
+        if kind != "matrix":
+            return entry
+        chain_id, bubble_paths, matrix, cm, ccfg = payload
+        t0 = time.perf_counter()
+        try:
+            dp = _chain_cluster_dp_stage(matrix, ccfg, res, scores=scores,
+                                         collapse=cm, device=device)
+        except Exception as exc:
+            if not keep_going:
+                raise
+            log.error("chain %d failed: %s", chain_id, exc)
+            res.reason, res.error = "error", str(exc)
+            res.seconds += time.perf_counter() - t0
+            return ("skipped", res, None)
+        res.seconds += time.perf_counter() - t0
+        if dp is None:
+            return ("skipped", res, None)
+        return ("compute", res, (chain_id, bubble_paths, dp, ccfg))
+
+    def _pool_map(fn, items):
+        if config.threads > 1 and len(items) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=config.threads) as pool:
+                return list(pool.map(fn, items))
+        return [fn(it) for it in items]
+
+    prepared = _pool_map(lambda w: matrix_one(*w), work)
+
+    def _effective(payload):
+        _cid, _bp, matrix, cm, _ccfg = payload
+        return cm.num_groups if cm is not None else matrix.num_reads
+
+    # batched dense scoring, consumed slice by slice under a host-byte
+    # budget for the fetched [G, G] float64 matrices
+    dense_idx = [i for i, (kind, _res, payload) in enumerate(prepared)
+                 if kind == "matrix"
+                 and _effective(payload) <= config.banded_scoring_threshold]
+    slices: List[List[int]] = []
+    if len(dense_idx) > 1:
+        budget = max(int(config.score_fetch_budget_bytes), 1 << 20)
+        cur: List[int] = []
+        cur_bytes = 0
+        for i in dense_idx:
+            nbytes = 8 * _effective(prepared[i][2]) ** 2
+            if cur and cur_bytes + nbytes > budget:
+                slices.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nbytes
+        if cur:
+            slices.append(cur)
+
+    clustered = set()
+    for sl in slices:
+        t_sl = time.perf_counter()
+        mats, mults = [], []
+        for i in sl:
+            _cid, _bp, matrix, cm, _ccfg = prepared[i][2]
+            mats.append(cm.matrix if cm is not None else matrix)
+            mults.append(cm.mult if cm is not None else None)
+        many = score_pairs_device_many(mats, config, mults=mults,
+                                       device=device)
+        score_map = dict(zip(sl, many))
+        del many, mats
+        share = (time.perf_counter() - t_sl) / len(sl)
+        for i in sl:
+            prepared[i][1].stage_seconds["scoring"] = share
+        done = _pool_map(
+            lambda i: cluster_one(prepared[i], scores=score_map.pop(i)), sl)
+        for i, entry in zip(sl, done):
+            prepared[i] = entry
+        clustered.update(sl)
+
+    rest = [i for i in range(len(prepared)) if i not in clustered]
+    done = _pool_map(lambda i: cluster_one(prepared[i]), rest)
+    for i, entry in zip(rest, done):
+        prepared[i] = entry
+
+    records = []          # (kind, result, payload)
+    dps = []
+    dp_cfgs = []          # per-dp effective config (ploidy overrides)
+    for slot in slots:
+        if not isinstance(slot, int):
+            records.append(slot)
+            continue
+        kind, res, payload = prepared[slot]
+        if kind != "compute":
+            records.append((kind, res, payload))
+            continue
+        chain_id, bubble_paths, dp, ccfg = payload
+        records.append(("compute", res, (chain_id, bubble_paths, dp,
+                                         ccfg, len(dps))))
+        dps.append(dp)
+        dp_cfgs.append(ccfg)
+
+    t0 = time.perf_counter()
+    try:
+        paths = thread_chains_batched(dps, config, chain_configs=dp_cfgs,
+                                      device=device)
+    except Exception as exc:
+        # keep_going: retry chain by chain so one sick chain cannot
+        # abort the run; without it the failure propagates
+        if not keep_going:
+            raise
+        log.error("batched threading DP failed (%s: %s); retrying "
+                  "per chain", type(exc).__name__, exc)
+        paths = []
+        for dp, dcfg in zip(dps, dp_cfgs):
+            try:
+                paths.append(thread_chain_device(dp, dcfg, device=device))
+            except Exception as exc2:
+                log.error("per-chain threading failed: %s", exc2)
+                paths.append(None)
+    dp_seconds = time.perf_counter() - t0
+    art.stage_seconds["dp_device_window"] = dp_seconds
+    # the run's DP inputs and paths, for re-threading checks
+    art.threading = {"dps": dps, "configs": dp_cfgs, "paths": paths}
+    sub = substage.drain()
+    if sub:
+        art.stage_seconds["substages"] = sub
+
+    results: List[ChainPhasingResult] = []
+    with open(f"{outstem}-result.txt", "w") as full_output:
+        for kind, res, payload in records:
+            full_output.write(f"chain id: {res.chain_id}\n")
+            full_output.write(f"size of chain: {res.num_bubbles}\n")
+            if kind == "resumed":
+                with open(payload) as fh:
+                    for i, line in enumerate(fh):
+                        full_output.write(f"haplotype {i}:\n")
+                        full_output.write(line)
+            elif kind == "compute" and paths[payload[4]] is None:
+                res.reason, res.error = "error", "threading failed"
+            elif kind == "compute":
+                chain_id, bubble_paths, dp, ccfg, dp_idx = payload
+                t1 = time.perf_counter()
+                path = assign_rows(paths[dp_idx], ccfg.ploidy)
+                res.haplotype_alleles = emit_chain_result(
+                    graph=art.graph, chain_id=chain_id,
+                    hap_cluster_path=path,
+                    consensus_by_cluster=consensus_lookup(dp),
+                    dense_positions=[int(p) for p in dp.positions],
+                    bubble_paths=bubble_paths, ploidy=ccfg.ploidy,
+                    outstem=outstem, full_output=full_output)
+                res.skipped = False
+                S = max_states(ccfg.ploidy)
+                res.dp_cells = max(res.num_positions - 1, 0) \
+                    * _dp_frontier_width(ccfg, S) * S
+                res.stage_seconds["threading"] = \
+                    dp_seconds / max(len(dps), 1)
+                res.seconds += (time.perf_counter() - t1
+                                + dp_seconds / max(len(dps), 1))
+            results.append(res)
+    return results

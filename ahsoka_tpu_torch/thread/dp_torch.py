@@ -1,0 +1,208 @@
+"""Haplotype-threading DP over chain batches in PyTorch.
+
+Counterpart of ``ahsoka_tpu/thread/dp_jax.py``: the same full-width state
+enumeration (multisets of ``ploidy`` over M = 2*ploidy slots, S =
+C(3k-1, k) states, invalid states at node cost 1e30), the same position
+bucketing with sentinel positions, and the same grouping of chains by
+(padded positions, allele count, ploidy).
+
+Dispatch per group:
+- CUDA: ploidy 2 runs the hand-written diploid kernels
+  (``thread/dp_kernels.py``) for every group, whatever its size.  Other
+  ploidies and the beam DP raise ``NotImplementedError`` (their kernels
+  are still to be ported).
+- CPU: the plain PyTorch versions, for every ploidy (ploidy 2 through the
+  same kernel wrappers, which route CPU tensors to their plain versions).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ahsoka_tpu.cluster.postprocess import DPInputs
+from ahsoka_tpu.config import PhasingConfig
+from ahsoka_tpu.thread.states import (full_state_counts,
+                                      full_state_validity, state_tuples)
+from ahsoka_tpu.utils import substage
+from ahsoka_tpu_torch.ops.minplus import (_INF, backtrace_ref,
+                                          minplus_forward_ref)
+from ahsoka_tpu_torch.state import to_torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _bucket_positions(P: int, bucket: int = 128) -> int:
+    """Padded position count: multiples of 8 up to ``bucket``, then
+    multiples of ``bucket`` up to 1024, then multiples of 1024
+    (``dp_jax._bucket_positions``).  The sentinel positions it adds are
+    real DP inputs (candidates -1: a constant cost on every path), so the
+    port keeps the JAX package's bucketing to thread identical inputs."""
+    if P <= bucket:
+        return _round_up(P, min(bucket, _round_up(P, 8)))
+    if P <= 1024:
+        return _round_up(P, bucket)
+    return _round_up(P, 1024)
+
+
+def node_costs_all(candidates, num_candidates, coverage, consensus,
+                   genotypes, counts_table, valid_table, *, ploidy: int,
+                   num_alleles: int, cov_w: float, geno_w: float
+                   ) -> torch.Tensor:
+    """[C, P, S] node costs for every chain and position (invalid states
+    -> 1e30).  Inputs are chain-batched tensors on one device:
+    candidates/consensus [C, P, M] int32, num_candidates [C, P] int32,
+    coverage [C, P, M] f32, genotypes [C, P, A] f32; counts_table [S, M]
+    and valid_table [M+1, S] (``thread/states.py``).
+
+    The coverage term sums over the M slots left to right, one rounding
+    per add; the genotype term is exact (small integers)."""
+    k = ploidy
+    dev = candidates.device
+    countsf = torch.as_tensor(counts_table, device=dev).to(torch.float32)
+    valid_t = torch.as_tensor(valid_table, device=dev)
+    valid = valid_t[num_candidates.long()]                   # [C, P, S]
+    M = countsf.shape[1]
+    target = countsf / k                                     # [S, M]
+    cov_cost = torch.abs(coverage[:, :, None, 0] - target[:, 0])
+    for m in range(1, M):
+        cov_cost = cov_cost + torch.abs(coverage[:, :, None, m]
+                                        - target[:, m])
+    alleles = torch.arange(num_alleles, device=dev)
+    cons_oh = (consensus[..., None] == alleles).to(torch.float32)
+    cons_oh = cons_oh * (candidates >= 0).to(torch.float32)[..., None]
+    allele_counts = torch.einsum("sm,cpma->cpsa", countsf, cons_oh)
+    geno_cost = 0.5 * torch.abs(allele_counts
+                                - genotypes[:, :, None, :]).sum(-1)
+    node = cov_w * cov_cost + geno_w * geno_cost
+    return torch.where(valid, node,
+                       torch.tensor(_INF, dtype=torch.float32, device=dev))
+
+
+def dp_forward_ref(candidates, num_candidates, coverage, consensus,
+                   genotypes, counts_table, valid_table, *, ploidy: int,
+                   num_alleles: int, switch_cost: float, affine_cost: float,
+                   cov_w: float, geno_w: float):
+    """Plain chain-batched forward pass at any ploidy: node costs + the
+    position loop.  Returns (final_costs [C, S], backptrs [C, P, S])."""
+    node = node_costs_all(candidates, num_candidates, coverage, consensus,
+                          genotypes, counts_table, valid_table,
+                          ploidy=ploidy, num_alleles=num_alleles,
+                          cov_w=cov_w, geno_w=geno_w)
+    return minplus_forward_ref(candidates, node, counts_table,
+                               ploidy=ploidy, switch_cost=switch_cost,
+                               affine_cost=affine_cost)
+
+
+def _beam_width_for(config: PhasingConfig, S: int) -> int:
+    """Active beam width: configured, and the state space exceeds it."""
+    bw = int(getattr(config, "dp_beam_width", 0) or 0)
+    return bw if bw and S > bw else 0
+
+
+def _pack_group(dps: List[DPInputs], members: List[int], P_pad: int):
+    """Stack a group's chains at P_pad positions with the JAX package's
+    sentinel padding (candidates -1, one candidate, zero coverage)."""
+    ca, nc, co, cs, ge = [], [], [], [], []
+    for idx in members:
+        dp = dps[idx]
+        pad = P_pad - dp.num_positions
+        ca.append(np.pad(dp.candidates, ((0, pad), (0, 0)),
+                         constant_values=-1))
+        nc.append(np.pad(dp.num_candidates, (0, pad), constant_values=1))
+        co.append(np.pad(dp.coverage, ((0, pad), (0, 0))))
+        cs.append(np.pad(dp.consensus, ((0, pad), (0, 0))))
+        ge.append(np.pad(dp.genotypes, ((0, pad), (0, 0))))
+    return (np.stack(ca), np.stack(nc), np.stack(co).astype(np.float32),
+            np.stack(cs), np.stack(ge).astype(np.float32))
+
+
+def thread_states(ca, nc, co, cs, ge, config: PhasingConfig, *,
+                  ploidy: int, num_alleles: int) -> torch.Tensor:
+    """One shape group ([C, P_pad, ...] tensors on one device) -> the
+    [C, P_pad] int32 state matrix, on the group's device."""
+    k = ploidy
+    dev = ca.device
+    counts_table = full_state_counts(k)
+    valid_table = full_state_validity(k)
+    geno_w = (config.genotype_cost_weight if config.use_genotypes else 0.0)
+    if _beam_width_for(config, counts_table.shape[0]):
+        raise NotImplementedError(
+            "the beam-pruned threading DP (dp_beam_width > 0 with more "
+            "states than the beam) is not ported yet: ROADMAP queue 1 "
+            "item 10")
+    kw = dict(ploidy=k, num_alleles=num_alleles,
+              switch_cost=float(config.switch_cost),
+              affine_cost=float(config.affine_switch_cost),
+              cov_w=float(config.coverage_cost_weight), geno_w=float(geno_w))
+    if k == 2:
+        from ahsoka_tpu_torch.thread.dp_kernels import thread_batch_diploid
+        states, _ = thread_batch_diploid(ca, nc, co, cs, ge, counts_table,
+                                         valid_table, **kw)
+        return states
+    if dev.type == "cuda":
+        raise NotImplementedError(
+            f"ploidy {k} on CUDA needs the general-ploidy streamed kernel, "
+            "which is not ported yet: ROADMAP queue 2 c (run it on the CPU "
+            "with device='cpu')")
+    final, bp = dp_forward_ref(ca, nc, co, cs, ge, counts_table,
+                               valid_table, **kw)
+    final_state = torch.argmin(final, dim=1).to(torch.int32)
+    return backtrace_ref(bp, final_state)
+
+
+def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
+                          bucket: int = 128, chain_configs=None,
+                          device="cuda") -> List[List[Tuple[int, ...]]]:
+    """Thread many chains with one DP call per (P_pad, A, ploidy) group;
+    identical paths to ``dp_jax.thread_chains_batched`` (same padding and
+    argmin tie-breaks).  ``chain_configs`` carries each dp's effective
+    config (per-chain ploidy overrides)."""
+    dev = torch.device(device)
+    if chain_configs is None:
+        chain_configs = [config] * len(dps)
+    groups: dict = {}
+    for idx, dp in enumerate(dps):
+        P = dp.num_positions
+        if P == 0:
+            continue
+        P_pad = _bucket_positions(P, bucket)
+        groups.setdefault((P_pad, dp.genotypes.shape[1],
+                           chain_configs[idx].ploidy), []).append(idx)
+
+    paths: List[List[Tuple[int, ...]]] = [[] for _ in dps]
+    for (P_pad, A, k), members in groups.items():
+        cfg = chain_configs[members[0]]
+        tuples = state_tuples(2 * k, k)
+        with substage.timed("threading.pack"):
+            arrays = _pack_group(dps, members, P_pad)
+        with substage.timed("threading.upload"):
+            ca, nc, co, cs, ge = to_torch(*arrays, device=dev)
+        with substage.timed("threading.kernel"):
+            states = thread_states(ca, nc, co, cs, ge, cfg, ploidy=k,
+                                   num_alleles=A)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        with substage.timed("threading.fetch"):
+            states = states.cpu().numpy()
+        with substage.timed("threading.expand"):
+            for row, idx in enumerate(members):
+                dp = dps[idx]
+                paths[idx] = [tuple(int(dp.candidates[j, slot])
+                                    for slot in tuples[int(states[row, j])])
+                              for j in range(dp.num_positions)]
+    return paths
+
+
+def thread_chain_device(dp: DPInputs, config: PhasingConfig,
+                        bucket: int = 128, device="cuda"
+                        ) -> List[Tuple[int, ...]]:
+    """One chain (the keep-going per-chain retry): the batched DP at a
+    batch of one, same padding as ``dp_jax.thread_chain_device``."""
+    if dp.num_positions == 0:
+        return []
+    return thread_chains_batched([dp], config, bucket, device=device)[0]

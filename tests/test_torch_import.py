@@ -1,0 +1,123 @@
+"""The PyTorch port imports no jax, resolves devices strictly, and routes
+CPU tensors to the kernels' plain versions."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import ahsoka_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
+                                               "ahsoka_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+from ahsoka_tpu_torch.host import loaded_jax_modules
+print(len(names), loaded_jax_modules(sys.modules))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, loaded = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15
+    assert loaded == "[]", loaded
+
+
+def test_resolve_device_cuda_raises_without_card(monkeypatch):
+    from ahsoka_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+
+
+def test_resolve_device_cpu_pins_true_fp32():
+    from ahsoka_tpu_torch.device import fp32_settings, resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = True
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert fp32_settings() == {"cuda.matmul.allow_tf32": False,
+                               "cudnn.allow_tf32": False,
+                               "float32_matmul_precision": "highest"}
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_wrappers_route_cpu_tensors_to_plain_versions(monkeypatch):
+    from ahsoka_tpu_torch.ops import _build
+    from ahsoka_tpu_torch.ops import minplus_diploid as md
+
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build a CUDA kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    rng = np.random.default_rng(0)
+    cand = torch.from_numpy(rng.integers(-1, 5, size=(3, 9, 4))
+                            .astype(np.int32))
+    node = torch.from_numpy(rng.random((3, 9, 10)).astype(np.float32))
+    before = (md.minplus_forward_diploid.launches,
+              md.backtrace_diploid.launches)
+    fin, bp = md.minplus_forward_diploid(cand, node, switch_cost=32.0,
+                                         affine_cost=8.0)
+    fin_r, bp_r = md.minplus_forward_diploid_ref(cand, node,
+                                                 switch_cost=32.0,
+                                                 affine_cost=8.0)
+    assert torch.equal(fin, fin_r) and torch.equal(bp, bp_r)
+    fs = torch.argmin(fin, dim=1).to(torch.int32)
+    assert torch.equal(md.backtrace_diploid(bp, fs),
+                       md.backtrace_diploid_ref(bp, fs))
+    assert (md.minplus_forward_diploid.launches,
+            md.backtrace_diploid.launches) == before
+
+
+def test_wrappers_check_dtype_shape_contiguity():
+    from ahsoka_tpu_torch.ops import minplus_diploid as md
+    cand = torch.zeros((2, 5, 4), dtype=torch.int32)
+    node = torch.zeros((2, 5, 10), dtype=torch.float32)
+    kw = dict(switch_cost=32.0, affine_cost=8.0)
+    with pytest.raises(TypeError):
+        md.minplus_forward_diploid(cand.long(), node, **kw)
+    with pytest.raises(ValueError):
+        md.minplus_forward_diploid(cand[:, :, :3].contiguous(), node, **kw)
+    with pytest.raises(ValueError):
+        md.minplus_forward_diploid(cand.transpose(0, 1), node, **kw)
+    with pytest.raises(ValueError):
+        md.backtrace_diploid(torch.zeros((2, 5, 10), dtype=torch.int32),
+                             torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--dp-beam-width", "16"], ["--data-shards", "2"],
+    ["--chain-shards", "2"], ["--process-sharding", "chains"],
+    ["--backend", "host"]])
+def test_cli_unported_flags_raise(tmp_path, argv):
+    from ahsoka_tpu_torch.cli.main import main
+    with pytest.raises(NotImplementedError, match="not ported"):
+        main(["phase", "-g", "x.gfa", "-a", "x.gaf", "-o",
+              str(tmp_path / "o"), "--device", "cpu"] + argv)
+
+
+def test_beam_dp_raises_not_implemented():
+    from ahsoka_tpu.config import PhasingConfig
+    from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
+
+    from test_dp import random_dp_inputs
+    cfg = PhasingConfig(ploidy=4, dp_beam_width=16)
+    dp = random_dp_inputs(P=6, ploidy=4, num_clusters=6, seed=0)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        thread_chains_batched([dp], cfg, device="cpu")

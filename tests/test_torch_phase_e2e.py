@@ -1,0 +1,155 @@
+"""The port end to end on the CPU: its CLI reproduces the committed golden
+outputs byte for byte, and its run_phase writes the same result files as
+the JAX package's on a synthetic multi-chain input."""
+
+import dataclasses
+import glob
+import json
+import os
+import shutil
+
+import pytest
+import torch
+
+from ahsoka_tpu.config import PhasingConfig
+from ahsoka_tpu.utils.synth import SynthSpec, write_synthetic
+from ahsoka_tpu_torch.cli.main import main as cli_main
+
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+def _read(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _golden(name):
+    return _read(os.path.join(DATA, name))
+
+
+def test_cli_golden_diploid(tmp_path):
+    gaf = tmp_path / "golden_diploid.gaf"
+    shutil.copy(os.path.join(DATA, "golden_diploid.gaf"), gaf)
+    out = str(tmp_path / "o")
+    assert cli_main(["phase", "-g", os.path.join(DATA, "golden_diploid.gfa"),
+                     "-a", str(gaf), "-o", out, "--device", "cpu"]) == 0
+    assert _read(out + "-result.txt") == _golden("golden_diploid-result.txt")
+    assert _read(out + "-bubbleinfo.txt") == \
+        _golden("golden_diploid-bubbleinfo.txt")
+    assert _read(str(tmp_path / "golden_diploid-alignment_identities.txt")
+                 ) == _golden("golden_diploid-identities.txt")
+    with open(out + "-metrics.json") as fh:
+        m = json.load(fh)
+    assert m["backend"] == "torch" and m["device"] == "cpu"
+    assert m["chains_phased"] == 1 and m["chains_failed"] == 0
+
+
+def test_cli_golden_tetraploid(tmp_path):
+    gaf = tmp_path / "golden_tetra.gaf"
+    shutil.copy(os.path.join(DATA, "golden_tetra.gaf"), gaf)
+    out = str(tmp_path / "o")
+    assert cli_main(["phase", "-g", os.path.join(DATA, "golden_tetra.gfa"),
+                     "-a", str(gaf), "-o", out, "--device", "cpu",
+                     "--ploidy", "4", "--no-genotypes"]) == 0
+    assert _read(out + "-result.txt") == _golden("golden_tetra-result.txt")
+
+
+def test_cli_only_bubbles(tmp_path):
+    out = str(tmp_path / "b")
+    assert cli_main(["only-bubbles", "-g",
+                     os.path.join(DATA, "golden_diploid.gfa"), "-o",
+                     out]) == 0
+    assert _read(out + "-bubbleinfo.txt") == \
+        _golden("golden_diploid-bubbleinfo.txt")
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    d = tmp_path_factory.mktemp("synth")
+    spec = SynthSpec(num_chains=8, bubbles_per_chain=20, reads_per_hap=30,
+                     span=3, error_rate=0.02, seed=4)
+    gfa, gaf = str(d / "s.gfa"), str(d / "s.gaf")
+    write_synthetic(gfa, gaf, spec)
+    return d, gfa, gaf
+
+
+BENCH = PhasingConfig(debug_readset_files=False, max_coverage=64)
+
+
+def _chain_files(stem):
+    return {os.path.basename(f).split("-", 1)[1]: _read(f)
+            for f in glob.glob(f"{stem}-chain*-result.txt")}
+
+
+def test_run_phase_matches_jax_package(synth):
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    d, gfa, gaf = synth
+    jax_run_phase(gfa, gaf, str(d / "jax"), BENCH)
+    art = run_phase(gfa, gaf, str(d / "torch"), BENCH, device="cpu")
+    assert _read(str(d / "torch-result.txt")) == \
+        _read(str(d / "jax-result.txt"))
+    assert _chain_files(str(d / "torch")) == _chain_files(str(d / "jax"))
+    assert len(art.threading["paths"]) == 8
+
+
+def test_resume_skips_done_chains(synth):
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    d, gfa, gaf = synth
+    stem = str(d / "resume")
+    run_phase(gfa, gaf, stem, BENCH, device="cpu")
+    first = _read(stem + "-result.txt")
+    run_phase(gfa, gaf, stem, BENCH, device="cpu", resume=True)
+    assert _read(stem + "-result.txt") == first
+    with open(stem + "-metrics.json") as fh:
+        m = json.load(fh)
+    assert all(c["resumed"] for c in m["chains"])
+
+
+def test_keep_going_retries_threading_per_chain(synth, monkeypatch):
+    """A failed batched DP is retried chain by chain under keep_going
+    (and propagates without it)."""
+    from ahsoka_tpu_torch.pipeline import run_phase
+    from ahsoka_tpu_torch.thread import dp_torch
+
+    d, gfa, gaf = synth
+    real = dp_torch.thread_chains_batched
+
+    def flaky(dps, *a, **k):
+        if len(dps) > 1:
+            raise RuntimeError("injected batched DP failure")
+        return real(dps, *a, **k)
+
+    monkeypatch.setattr(dp_torch, "thread_chains_batched", flaky)
+    with pytest.raises(RuntimeError, match="injected"):
+        run_phase(gfa, gaf, str(d / "kg0"), BENCH, device="cpu")
+    run_phase(gfa, gaf, str(d / "kg"), BENCH, device="cpu", keep_going=True)
+    monkeypatch.setattr(dp_torch, "thread_chains_batched", real)
+    run_phase(gfa, gaf, str(d / "ok"), BENCH, device="cpu")
+    assert _read(str(d / "kg-result.txt")) == _read(str(d / "ok-result.txt"))
+
+
+def test_banded_scoring_raises_not_implemented(synth):
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    d, gfa, gaf = synth
+    cfg = dataclasses.replace(BENCH, banded_scoring_threshold=8)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        run_phase(gfa, gaf, str(d / "banded"), cfg, device="cpu")
+
+
+def test_cli_profile_writes_trace(tmp_path):
+    gaf = tmp_path / "golden_diploid.gaf"
+    shutil.copy(os.path.join(DATA, "golden_diploid.gaf"), gaf)
+    prof = tmp_path / "prof"
+    assert cli_main(["phase", "-g", os.path.join(DATA, "golden_diploid.gfa"),
+                     "-a", str(gaf), "-o", str(tmp_path / "o"), "--device",
+                     "cpu", "--profile", str(prof)]) == 0
+    with open(prof / "trace.json") as fh:
+        assert "traceEvents" in json.load(fh)
+    assert _read(str(tmp_path / "o-result.txt")) == \
+        _golden("golden_diploid-result.txt")
