@@ -10,8 +10,8 @@ plus ``--device``:
 ``--device cuda`` (the default) needs an NVIDIA card and raises without
 one.  Flags for paths the port does not run yet (beam DP, data/chain
 sharding, multi-process layouts, the host backend) are accepted by the
-parser and raise NotImplementedError naming the ROADMAP item; ploidy
-other than 2 runs on ``--device cpu`` only.
+parser and raise NotImplementedError naming the ROADMAP item.  Ploidy
+1-5 runs on both devices.
 """
 
 from __future__ import annotations

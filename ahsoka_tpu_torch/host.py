@@ -14,7 +14,8 @@ their counterparts, where ported, in this package.
 
 from ahsoka_tpu.cluster.postprocess import DPInputs  # noqa: F401
 from ahsoka_tpu.config import PhasingConfig  # noqa: F401
-from ahsoka_tpu.utils.accuracy import score_phased_output  # noqa: F401
+from ahsoka_tpu.utils.accuracy import (ploidy_map_from_truth,  # noqa: F401
+                                       score_phased_output)
 from ahsoka_tpu.utils.synth import (CONFIGS, SynthSpec,  # noqa: F401
                                     write_synthetic)
 

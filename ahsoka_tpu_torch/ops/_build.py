@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 # seconds spent in nvcc by this process, per library (0.0 when the
 # library was already built and only loaded)
 build_seconds: Dict[str, float] = {}
@@ -65,8 +67,11 @@ def _build(name: str, src: str, lib: str, extra_flags=()) -> float:
 
 def load(name: str, extra_flags=()) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, building it first when it is missing
-    or older than ``csrc/<name>.cu``."""
+    or older than ``csrc/<name>.cu``.  Builds of different libraries may
+    run at once (one lock per library)."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC, f"{name}.cu")
@@ -79,3 +84,9 @@ def load(name: str, extra_flags=()) -> ctypes.CDLL:
         _LIBS[name] = lib
         return lib
 
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """Load several libraries, running their nvcc builds in parallel."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -6,13 +6,12 @@ C(3k-1, k) states, invalid states at node cost 1e30), the same position
 bucketing with sentinel positions, and the same grouping of chains by
 (padded positions, allele count, ploidy).
 
-Dispatch per group:
-- CUDA: ploidy 2 runs the hand-written diploid kernels
-  (``thread/dp_kernels.py``) for every group, whatever its size.  Other
-  ploidies and the beam DP raise ``NotImplementedError`` (their kernels
-  are still to be ported).
-- CPU: the plain PyTorch versions, for every ploidy (ploidy 2 through the
-  same kernel wrappers, which route CPU tensors to their plain versions).
+Dispatch per group (``thread/dp_kernels.py``): ploidy 2 takes the
+diploid kernels and ploidy 1 and 3-5 the general-ploidy ones, for every
+group whatever its size.  On CUDA the wrappers launch the hand-written
+kernels; on the CPU they run their plain PyTorch versions, which take any
+ploidy.  The beam DP (``dp_beam_width``) raises ``NotImplementedError``
+on both (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -27,8 +26,7 @@ from ahsoka_tpu.config import PhasingConfig
 from ahsoka_tpu.thread.states import (full_state_counts,
                                       full_state_validity, state_tuples)
 from ahsoka_tpu.utils import substage
-from ahsoka_tpu_torch.ops.minplus import (_INF, backtrace_ref,
-                                          minplus_forward_ref)
+from ahsoka_tpu_torch.ops.minplus import _INF
 from ahsoka_tpu_torch.state import to_torch
 
 
@@ -83,21 +81,6 @@ def node_costs_all(candidates, num_candidates, coverage, consensus,
                        torch.tensor(_INF, dtype=torch.float32, device=dev))
 
 
-def dp_forward_ref(candidates, num_candidates, coverage, consensus,
-                   genotypes, counts_table, valid_table, *, ploidy: int,
-                   num_alleles: int, switch_cost: float, affine_cost: float,
-                   cov_w: float, geno_w: float):
-    """Plain chain-batched forward pass at any ploidy: node costs + the
-    position loop.  Returns (final_costs [C, S], backptrs [C, P, S])."""
-    node = node_costs_all(candidates, num_candidates, coverage, consensus,
-                          genotypes, counts_table, valid_table,
-                          ploidy=ploidy, num_alleles=num_alleles,
-                          cov_w=cov_w, geno_w=geno_w)
-    return minplus_forward_ref(candidates, node, counts_table,
-                               ploidy=ploidy, switch_cost=switch_cost,
-                               affine_cost=affine_cost)
-
-
 def _beam_width_for(config: PhasingConfig, S: int) -> int:
     """Active beam width: configured, and the state space exceeds it."""
     bw = int(getattr(config, "dp_beam_width", 0) or 0)
@@ -126,7 +109,6 @@ def thread_states(ca, nc, co, cs, ge, config: PhasingConfig, *,
     """One shape group ([C, P_pad, ...] tensors on one device) -> the
     [C, P_pad] int32 state matrix, on the group's device."""
     k = ploidy
-    dev = ca.device
     counts_table = full_state_counts(k)
     valid_table = full_state_validity(k)
     geno_w = (config.genotype_cost_weight if config.use_genotypes else 0.0)
@@ -139,20 +121,12 @@ def thread_states(ca, nc, co, cs, ge, config: PhasingConfig, *,
               switch_cost=float(config.switch_cost),
               affine_cost=float(config.affine_switch_cost),
               cov_w=float(config.coverage_cost_weight), geno_w=float(geno_w))
-    if k == 2:
-        from ahsoka_tpu_torch.thread.dp_kernels import thread_batch_diploid
-        states, _ = thread_batch_diploid(ca, nc, co, cs, ge, counts_table,
-                                         valid_table, **kw)
-        return states
-    if dev.type == "cuda":
-        raise NotImplementedError(
-            f"ploidy {k} on CUDA needs the general-ploidy streamed kernel, "
-            "which is not ported yet: ROADMAP queue 2 c (run it on the CPU "
-            "with device='cpu')")
-    final, bp = dp_forward_ref(ca, nc, co, cs, ge, counts_table,
-                               valid_table, **kw)
-    final_state = torch.argmin(final, dim=1).to(torch.int32)
-    return backtrace_ref(bp, final_state)
+    from ahsoka_tpu_torch.thread.dp_kernels import (thread_batch_diploid,
+                                                    thread_batch_streamed)
+    thread_batch = thread_batch_diploid if k == 2 else thread_batch_streamed
+    states, _ = thread_batch(ca, nc, co, cs, ge, counts_table, valid_table,
+                             **kw)
+    return states
 
 
 def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,

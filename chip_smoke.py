@@ -7,27 +7,46 @@
 Runs from the repository root with no install and no jax:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit,
-   the TF32 settings, and the build of the CUDA kernels from
-   ``ahsoka_tpu_torch/csrc`` (timed);
-2. each diploid DP kernel against its plain PyTorch version on the card,
-   on seeded random DP inputs at config4's DP shape (C=1000, P=56),
-   ragged chain counts (C=1, C=37), a config2-length chain (C=1,
-   P=10,000) and an all-ties case: backpointers, final costs and states
-   must be exactly equal; median times with CUDA events;
+   the TF32 settings, and the builds of the CUDA kernels from
+   ``ahsoka_tpu_torch/csrc`` (one nvcc per source, run in parallel, timed);
+2. each DP kernel against its plain PyTorch version on the card, on
+   seeded random DP inputs; backpointers, final costs and states must be
+   exactly equal; median times with CUDA events:
+   - the diploid kernels at config4's DP shape (C=1000, P=56), ragged
+     chain counts (C=1, C=37), a config2-length chain (C=1, P=10,000) and
+     an all-ties case;
+   - the general-ploidy kernels at config3c's DP shape (k=4, C=20,
+     P=256), k=1 (C=1000, P=56), k=3 (C=37, P=56), k=5 (C=4, P=64,
+     2002 states), one long tetraploid chain (C=1, P=2048) and an all-ties
+     k=4 batch; and the general forward equal to the diploid one at k=2
+     (C=1000, P=56);
 3. the golden diploid fixture through the port's ``run_only_bubbles`` and
-   ``run_phase`` on the card, byte-equal to ``tests/data``;
+   ``run_phase``, and the golden tetraploid one through the port's CLI
+   (``--ploidy 4 --no-genotypes``), on the card, byte-equal to
+   ``tests/data``;
 4. config4 (chr20 scale: 1000 chains x 50 bubbles, 1M GAF records) end to
    end on the card with the bench settings (no readset debug files,
-   coverage cap 64): every chain phased with no failure, both kernels
-   launched by the run, paths identical to re-threading the run's DP
-   inputs with the plain versions on the CPU, planted-truth switch error
-   below 0.01.
+   coverage cap 64): every chain phased with no failure, both diploid
+   kernels launched by the run, paths identical to re-threading the run's
+   DP inputs with the plain versions on the CPU, planted-truth switch
+   error below 0.01;
+5. config3c (20 tetraploid chains x 200 bubbles, 42,720 GAF records) end
+   to end on the card with the same settings and the balanced genotype
+   prior: every chain phased, both general kernels launched, paths
+   identical to a plain CPU re-threading, switch error below 0.02; then a
+   small mixed-ploidy run (one chain each of ploidy 2, 3, 4 and 5, a
+   ploidy map from the planted truth) that launches all four kernels,
+   paths identical to a plain CPU re-threading.
 
-Any failure raises and exits non-zero.  The last line is the result:
+Each end-to-end run sets the kernels' launch counts to 0 just before it
+and reads them just after.  Any failure raises and exits non-zero.  The
+last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 before it stand the card's ``nvidia-smi`` name/power-limit line and a
-``{"kernels": [...]}`` line with each kernel's launches in the config4
-run, its error against the plain version and both times.
+``{"kernels": [...]}`` line with each kernel's launches in its end-to-end
+run (config4 for the diploid kernels, config3c for the general ones), its
+error against the plain version and both times (at config4's and
+config3c's DP shapes).
 """
 
 from __future__ import annotations
@@ -45,11 +64,26 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 DATA = os.path.join(ROOT, "tests", "data")
 
 SWITCH, AFFINE = 32.0, 8.0            # PhasingConfig defaults
+MIXED_MAX_SWITCH_ERR = 0.02
+LIBS = ("minplus_diploid", "minplus_stream")
+# name -> (source, TPU kernel it replaces, end-to-end run that reads its
+# launches, kernel-phase case that gives its times)
 KERNEL_META = {
     "dp2_forward": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                    "ahsoka_tpu/ops/minplus_diploid.py:56"),
+                    "ahsoka_tpu/ops/minplus_diploid.py:56", "config4",
+                    "config4"),
     "dp2_backtrace": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                      "ahsoka_tpu/ops/minplus_diploid.py:188"),
+                      "ahsoka_tpu/ops/minplus_diploid.py:188", "config4",
+                      "config4"),
+    "dpk_forward": ("ahsoka_tpu_torch/csrc/minplus_stream.cu",
+                    "ahsoka_tpu/ops/minplus_stream.py:186 (_stream_kernel_ge);"
+                    " ahsoka_tpu/ops/minplus_stream.py:29 (_stream_kernel);"
+                    " ahsoka_tpu/ops/minplus.py:42 (_dp_kernel)", "config3c",
+                    "config3c"),
+    "dpk_backtrace": ("ahsoka_tpu_torch/csrc/minplus_stream.cu",
+                      "ahsoka_tpu/thread/dp_pallas.py:127 (the XLA-scan "
+                      "backtrace of thread_batch_pallas_streamed; no Pallas "
+                      "body)", "config3c", "config3c"),
 }
 
 
@@ -79,26 +113,25 @@ def phase_environment(dev) -> None:
     log(f"gpu: {nvidia_smi_line()}")
     log(f"tf32 settings: {json.dumps(fp32_settings())}")
     t0 = time.perf_counter()
-    _build.load("minplus_diploid")
-    log(f"kernel build: minplus_diploid nvcc "
-        f"{_build.build_seconds['minplus_diploid']:.2f} s (load "
-        f"{time.perf_counter() - t0:.2f} s)")
+    _build.load_all(LIBS)
+    log("kernel build: " + ", ".join(
+        f"{name} nvcc {_build.build_seconds[name]:.2f} s" for name in LIBS)
+        + f" (in parallel; load {time.perf_counter() - t0:.2f} s)")
 
 
 # ---------------------------------------------------------------- phase 2
-def random_dp_batch(C: int, P: int, seed: int, num_clusters: int = 5):
+def random_dp_batch(C: int, P: int, seed: int, ploidy: int = 2):
     """Seeded numpy DP inputs shaped like tests/test_dp.py
-    random_dp_inputs, stacked over C chains: candidates [C, P, 4],
-    num_candidates [C, P], coverage [C, P, 4], consensus [C, P, 4],
-    genotypes [C, P, 2]."""
+    random_dp_inputs (2k + 1 clusters), stacked over C chains, M = 2k:
+    candidates [C, P, M], num_candidates [C, P], coverage [C, P, M],
+    consensus [C, P, M], genotypes [C, P, 2] (balanced biallelic)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    M = 4
-    cand = np.full((C, P, M), -1, dtype=np.int32)
+    M = 2 * ploidy
     m = rng.integers(1, M + 1, size=(C, P))
     # distinct sorted ids per position: first m of a random permutation
-    perm = np.argsort(rng.random((C, P, num_clusters)), axis=2)[:, :, :M]
+    perm = np.argsort(rng.random((C, P, M + 1)), axis=2)[:, :, :M]
     perm = np.sort(perm, axis=2).astype(np.int32)
     slot = np.arange(M)[None, None, :]
     cand = np.where(slot < m[:, :, None], perm, -1).astype(np.int32)
@@ -107,20 +140,39 @@ def random_dp_batch(C: int, P: int, seed: int, num_clusters: int = 5):
     cons = (rng.integers(0, 2, size=(C, P, M))
             * (slot < m[:, :, None])).astype(np.int32)
     geno = np.zeros((C, P, 2), dtype=np.float32)
-    geno[:, :, 0] = geno[:, :, 1] = 1.0
+    geno[:, :, 0] = (ploidy + 1) // 2
+    geno[:, :, 1] = ploidy // 2
     return cand, m.astype(np.int32), cov, cons, geno
 
 
-def _node_costs(arrays, dev):
+def all_ties(arrays):
+    """Every chain and position: the same two candidates and uniform
+    coverage -> many equal-cost paths and states (in place)."""
+    cand, nc, cov, cons, _ = arrays
+    cand[:] = -1
+    cand[:, :, :2] = [0, 1]
+    nc[:] = 2
+    cov[:] = 0.0
+    cov[:, :, :2] = 0.5
+    cons[:] = 0
+    return arrays
+
+
+def _node_costs(arrays, dev, ploidy: int = 2, ties: bool = False):
+    import torch
+
     from ahsoka_tpu.thread.states import (full_state_counts,
                                           full_state_validity)
     from ahsoka_tpu_torch.state import to_torch
     from ahsoka_tpu_torch.thread.dp_torch import node_costs_all
 
     cand, nc, cov, cons, geno = to_torch(*arrays, device=dev)
-    node = node_costs_all(cand, nc, cov, cons, geno, full_state_counts(2),
-                          full_state_validity(2), ploidy=2, num_alleles=2,
-                          cov_w=1.0, geno_w=1.0).contiguous()
+    node = node_costs_all(cand, nc, cov, cons, geno,
+                          full_state_counts(ploidy),
+                          full_state_validity(ploidy), ploidy=ploidy,
+                          num_alleles=2, cov_w=1.0, geno_w=1.0).contiguous()
+    if ties:
+        node = torch.where(node < 1e29, torch.zeros_like(node), node)
     return cand, node
 
 
@@ -142,80 +194,117 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def phase_kernels(dev) -> dict:
-    """Kernel vs plain on the card, exact equality at every shape."""
-    import numpy as np
+def _kernel_pair_case(pair, case, dev, err) -> dict:
+    """One shape: forward + backtrace kernels against their plain
+    versions on the same card tensors, exactly; CUDA-event medians of
+    both.  ``pair``: (forward name, forward, plain forward, backtrace
+    name, backtrace, plain backtrace), the forwards taking (cand, node)."""
     import torch
 
-    from ahsoka_tpu_torch.ops.minplus_diploid import (
-        backtrace_diploid, backtrace_diploid_ref, minplus_forward_diploid,
-        minplus_forward_diploid_ref)
+    fname, fwd, fwd_ref, bname, bt, bt_ref = pair
+    name, k, C, P, reps, plain_reps = case
+    ties = name.startswith("all_ties")
+    arrays = random_dp_batch(C, P, seed=C * 7919 + P + (k - 2) * 104729,
+                             ploidy=k)
+    if ties:
+        all_ties(arrays)
+    cand, node = _node_costs(arrays, dev, k, ties)
+    fin_k, bp_k = fwd(cand, node)
+    fin_r, bp_r = fwd_ref(cand, node)
+    torch.cuda.synchronize()
+    fs = torch.argmin(fin_k, dim=1).to(torch.int32)
+    st_k = bt(bp_k, fs)
+    st_r = bt_ref(bp_k, fs)
+    torch.cuda.synchronize()
+    same = (torch.equal(fin_k, fin_r) and torch.equal(bp_k, bp_r)
+            and torch.equal(st_k, st_r))
+    err[fname] = max(err.get(fname, 0.0),
+                     float((fin_k - fin_r).abs().max()),
+                     float((bp_k - bp_r).abs().max()))
+    err[bname] = max(err.get(bname, 0.0), float((st_k - st_r).abs().max()))
+    if name == "config4":
+        # the plain version on the CPU agrees too
+        fin_c, bp_c = fwd_ref(cand.cpu(), node.cpu())
+        same = same and torch.equal(fin_c, fin_k.cpu()) \
+            and torch.equal(bp_c, bp_k.cpu())
+    if ties:
+        # torch.argmin on the card keeps the first minimum
+        tied = fin_k == fin_k.min(dim=1, keepdim=True).values
+        first = tied.to(torch.int32).argmax(dim=1).to(torch.int32)
+        same = same and torch.equal(fs, first) \
+            and bool((tied.sum(dim=1) > 1).any())
+    if not same:
+        raise AssertionError(f"kernel != plain at {name} (k={k}, C={C}, "
+                             f"P={P})")
+    t = {fname: (_median_ms(lambda: fwd(cand, node), reps),
+                 _median_ms(lambda: fwd_ref(cand, node), plain_reps)),
+         bname: (_median_ms(lambda: bt(bp_k, fs), reps),
+                 _median_ms(lambda: bt_ref(bp_k, fs), plain_reps))}
+    log(f"kernel parity {name} k={k} C={C} P={P}: exact; "
+        + "; ".join(f"{n} {v[0]:.4f} ms vs plain {v[1]:.3f} ms"
+                    for n, v in t.items()))
+    return t
+
+
+def phase_kernels(dev) -> dict:
+    """Kernel vs plain on the card, exact equality at every shape."""
+    import torch
+
+    from ahsoka_tpu.thread.states import full_state_counts
+    from ahsoka_tpu_torch.ops import minplus_diploid as md
+    from ahsoka_tpu_torch.ops import minplus_stream as ms
+    from ahsoka_tpu_torch.ops.minplus import (backtrace_ref,
+                                              minplus_forward_ref)
 
     kw = dict(switch_cost=SWITCH, affine_cost=AFFINE)
-    cases = [("config4", 1000, 56, 20), ("ragged1", 1, 56, 5),
-             ("ragged37", 37, 56, 5), ("config2_chain", 1, 10000, 3),
-             ("all_ties", 300, 24, 5)]
-    timing = {}
-    err = {"dp2_forward": 0.0, "dp2_backtrace": 0.0}
-    for name, C, P, reps in cases:
-        arrays = random_dp_batch(C, P, seed=C * 7919 + P)
-        if name == "all_ties":
-            # every chain and position: the same two candidates and
-            # uniform coverage -> many equal-cost paths and states
-            cand, nc, cov, cons, geno = arrays
-            cand[:] = -1
-            cand[:, :, :2] = [0, 1]
-            nc[:] = 2
-            cov[:] = 0.0
-            cov[:, :, :2] = 0.5
-            cons[:] = 0
-            arrays = (cand, nc, cov, cons, geno)
-        cand, node = _node_costs(arrays, dev)
-        if name == "all_ties":
-            node = torch.where(node < 1e29, torch.zeros_like(node), node)
-        fin_k, bp_k = minplus_forward_diploid(cand, node, **kw)
-        fin_r, bp_r = minplus_forward_diploid_ref(cand, node, **kw)
-        torch.cuda.synchronize()
-        fs = torch.argmin(fin_k, dim=1).to(torch.int32)
-        st_k = backtrace_diploid(bp_k, fs)
-        st_r = backtrace_diploid_ref(bp_k, fs)
-        torch.cuda.synchronize()
-        same = (torch.equal(fin_k, fin_r) and torch.equal(bp_k, bp_r)
-                and torch.equal(st_k, st_r))
-        err["dp2_forward"] = max(err["dp2_forward"],
-                                 float((fin_k - fin_r).abs().max()),
-                                 float((bp_k - bp_r).abs().max()))
-        err["dp2_backtrace"] = max(err["dp2_backtrace"],
-                                   float((st_k - st_r).abs().max()))
-        if name == "config4":
-            # the plain version on the CPU agrees too
-            fin_c, bp_c = minplus_forward_diploid_ref(cand.cpu(),
-                                                      node.cpu(), **kw)
-            same = same and torch.equal(fin_c, fin_k.cpu()) \
-                and torch.equal(bp_c, bp_k.cpu())
-        if name == "all_ties":
-            # torch.argmin on the card keeps the first minimum
-            tied = fin_k == fin_k.min(dim=1, keepdim=True).values
-            first = tied.to(torch.int32).argmax(dim=1).to(torch.int32)
-            same = same and torch.equal(fs, first) \
-                and bool((tied.sum(dim=1) > 1).any())
-        if not same:
-            raise AssertionError(f"kernel != plain at {name} (C={C}, P={P})")
-        t = {
-            "dp2_forward": (_median_ms(lambda: minplus_forward_diploid(
-                cand, node, **kw), reps),
-                _median_ms(lambda: minplus_forward_diploid_ref(
-                    cand, node, **kw), max(1, reps // 4) if P > 1000
-                    else reps)),
-            "dp2_backtrace": (_median_ms(lambda: backtrace_diploid(
-                bp_k, fs), reps),
-                _median_ms(lambda: backtrace_diploid_ref(bp_k, fs),
-                           max(1, reps // 4) if P > 1000 else reps)),
-        }
-        timing[name] = t
-        log(f"kernel parity {name} C={C} P={P}: exact; "
-            + "; ".join(f"{k} {v[0]:.4f} ms vs plain {v[1]:.3f} ms"
-                        for k, v in t.items()))
+    diploid = ("dp2_forward",
+               lambda c, n: md.minplus_forward_diploid(c, n, **kw),
+               lambda c, n: md.minplus_forward_diploid_ref(c, n, **kw),
+               "dp2_backtrace", md.backtrace_diploid,
+               md.backtrace_diploid_ref)
+
+    def general(k):
+        counts = full_state_counts(k)
+        return ("dpk_forward",
+                lambda c, n: ms.minplus_forward_streamed(
+                    c, n, counts, ploidy=k, **kw),
+                lambda c, n: minplus_forward_ref(
+                    c, n, counts, ploidy=k, **kw),
+                "dpk_backtrace", ms.backtrace_streamed, backtrace_ref)
+
+    # (name, ploidy, chains, positions, kernel reps, plain reps)
+    diploid_cases = [("config4", 2, 1000, 56, 20, 20),
+                     ("ragged1", 2, 1, 56, 5, 5),
+                     ("ragged37", 2, 37, 56, 5, 5),
+                     ("config2_chain", 2, 1, 10000, 3, 1),
+                     ("all_ties", 2, 300, 24, 5, 5)]
+    general_cases = [("config3c", 4, 20, 256, 10, 3),
+                     ("k1", 1, 1000, 56, 10, 5),
+                     ("k3", 3, 37, 56, 10, 5),
+                     ("k5", 5, 4, 64, 3, 1),
+                     ("tetra_long", 4, 1, 2048, 3, 1),
+                     ("all_ties_k4", 4, 20, 24, 5, 3)]
+    timing, err = {}, {}
+    for case in diploid_cases:
+        timing[case[0]] = _kernel_pair_case(diploid, case, dev, err)
+    for case in general_cases:
+        timing[case[0]] = _kernel_pair_case(general(case[1]), case, dev,
+                                            err)
+
+    # at ploidy 2 the general forward equals the diploid one bit for bit
+    arrays = random_dp_batch(1000, 56, seed=1000 * 7919 + 56)
+    cand, node = _node_costs(arrays, dev)
+    fin_d, bp_d = diploid[1](cand, node)
+    fin_g, bp_g = general(2)[1](cand, node)
+    torch.cuda.synchronize()
+    if not (torch.equal(fin_d, fin_g) and torch.equal(bp_d, bp_g)):
+        raise AssertionError("dpk_forward != dp2_forward at k=2 "
+                             "(C=1000, P=56)")
+    t_d = _median_ms(lambda: diploid[1](cand, node), 20)
+    t_g = _median_ms(lambda: general(2)[1](cand, node), 20)
+    log(f"dpk_forward == dp2_forward at k=2 C=1000 P=56: exact; "
+        f"dpk {t_g:.4f} ms vs dp2 {t_d:.4f} ms")
+
     # int32 scatter-amin on the card (projection's scatter-min by name)
     idx = torch.tensor([0, 2, 0, 1, 2, 2], device=dev)
     src = torch.tensor([5, 7, 3, 9, 2, 8], dtype=torch.int32, device=dev)
@@ -253,43 +342,90 @@ def phase_golden(dev) -> None:
     log("golden diploid on the card: result, bubbleinfo (phase and "
         "only-bubbles) and identities byte-equal")
 
+    # tetraploid through the CLI a user calls, on the general kernels
+    from ahsoka_tpu_torch.cli.main import main as cli_main
+    from ahsoka_tpu_torch.thread import dp_kernels
+
+    gaf = os.path.join(work, "golden_tetra.gaf")
+    shutil.copy(os.path.join(DATA, "golden_tetra.gaf"), gaf)
+    dp_kernels.reset_launch_counts()
+    rc = cli_main(["phase", "-g", os.path.join(DATA, "golden_tetra.gfa"),
+                   "-a", gaf, "-o", os.path.join(work, "t"), "--device",
+                   str(dev), "--ploidy", "4", "--no-genotypes"])
+    launches = dp_kernels.launch_counts()
+    if rc != 0 or not (launches["dpk_forward"]
+                       and launches["dpk_backtrace"]):
+        raise AssertionError(f"golden tetraploid: rc {rc}, launches "
+                             f"{launches}")
+    for got, want in [("t-result.txt", "golden_tetra-result.txt"),
+                      ("golden_tetra-alignment_identities.txt",
+                       "golden_tetra-alignment_identities.txt")]:
+        with open(os.path.join(work, got), "rb") as a, \
+                open(os.path.join(DATA, want), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"golden mismatch: {got} vs {want}")
+    log(f"golden tetraploid (CLI, --ploidy 4 --no-genotypes) on the card: "
+        f"result and identities byte-equal; launches {json.dumps(launches)}")
+
 
 # ---------------------------------------------------------------- phase 4
-def phase_e2e(dev, config_name: str) -> dict:
+def _ploidy_map_from_truth(gfa: str, truth: str, cfg) -> dict:
+    from ahsoka_tpu.graph.alleles import enumerate_allele_paths
+    from ahsoka_tpu_torch import host
+    from ahsoka_tpu_torch.pipeline import load_graph_and_bubbles
+
+    art = load_graph_and_bubbles(gfa, cfg)
+    paths = enumerate_allele_paths(art.graph, art.index)
+    return host.ploidy_map_from_truth(paths, truth)
+
+
+def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
+              ploidy_map: bool = False) -> dict:
+    """``spec`` end to end on the card: every chain phased, ``kernels``
+    launched by the run, paths identical to a plain CPU re-threading of
+    the run's DP inputs, planted-truth switch error below
+    ``max_switch_err``.  ``ploidy_map``: per-chain ploidies from the
+    planted truth."""
+    import dataclasses
+
+    from ahsoka_tpu.utils import substage
     from ahsoka_tpu_torch import host
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.pipeline import run_phase
     from ahsoka_tpu_torch.thread import dp_kernels
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
 
-    spec = host.CONFIGS[config_name]
-    work = os.path.join(WORK, config_name)
+    work = os.path.join(WORK, name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    gfa, gaf, truth = (os.path.join(work, f"{config_name}.{x}")
+    gfa, gaf, truth = (os.path.join(work, f"{name}.{x}")
                        for x in ("gfa", "gaf", "truth"))
     t0 = time.perf_counter()
     host.write_synthetic(gfa, gaf, spec, truth_path=truth)
-    log(f"{config_name}: {spec.num_chains} chains x "
-        f"{spec.bubbles_per_chain} bubbles, {spec.total_reads} GAF "
-        f"records generated in {time.perf_counter() - t0:.1f} s")
-    cfg = host.PhasingConfig(debug_readset_files=False, max_coverage=64,
-                             threads=min(os.cpu_count() or 1, 8))
+    plan = spec.plan()
+    log(f"{name}: {len(plan)} chains (bubbles, ploidy) "
+        f"{sorted(set(plan))}, {spec.total_reads} GAF records generated "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if ploidy_map:
+        pmap = _ploidy_map_from_truth(gfa, truth, cfg)
+        log(f"{name}: ploidy map from the planted truth {pmap}")
+        cfg = dataclasses.replace(cfg, ploidy_map=pmap)
     outstem = os.path.join(work, "run")
 
+    substage.drain()          # marks of an earlier run's CPU re-threading
     dp_kernels.reset_launch_counts()
     t0 = time.perf_counter()
     art = run_phase(gfa, gaf, outstem, cfg, device=dev, keep_going=False)
     synchronize(dev)
     wall = time.perf_counter() - t0
     launches = dp_kernels.launch_counts()
-    log(f"{config_name} run_phase on the card: {wall:.2f} s; kernel "
-        f"launches {json.dumps(launches)}")
+    log(f"{name} run_phase on the card: {wall:.2f} s; kernel launches "
+        f"{json.dumps(launches)}")
 
     with open(f"{outstem}-metrics.json") as fh:
         m = json.load(fh)
-    if m["chains_phased"] != spec.num_chains or m["chains_failed"]:
-        raise AssertionError(f"{m['chains_phased']}/{spec.num_chains} "
+    if m["chains_phased"] != len(plan) or m["chains_failed"]:
+        raise AssertionError(f"{name}: {m['chains_phased']}/{len(plan)} "
                              f"chains phased, {m['chains_failed']} failed")
 
     t0 = time.perf_counter()
@@ -299,34 +435,74 @@ def phase_e2e(dev, config_name: str) -> dict:
                                       device="cpu")
     if cpu_paths != th["paths"]:
         bad = sum(a != b for a, b in zip(cpu_paths, th["paths"]))
-        raise AssertionError(f"{bad} chains thread differently on the "
-                             "CPU plain path")
-    log(f"re-threaded {len(cpu_paths)} chains with the plain versions on "
-        f"the CPU in {time.perf_counter() - t0:.2f} s: paths identical")
+        raise AssertionError(f"{name}: {bad} chains thread differently on "
+                             "the CPU plain path")
+    log(f"{name}: re-threaded {len(cpu_paths)} chains with the plain "
+        f"versions on the CPU in {time.perf_counter() - t0:.2f} s: paths "
+        "identical")
 
     acc = host.score_phased_output(outstem, truth)
     stages = {k: v for k, v in m["stage_seconds"].items()
               if k != "substages"}
-    log(f"stage_seconds {json.dumps(stages)}")
-    log(f"substages {json.dumps(m['stage_seconds'].get('substages', {}))}")
-    log(f"accuracy vs planted truth {json.dumps(acc)}")
-    if not acc.get("switch_err_vs_truth", 1.0) < 0.01:
-        raise AssertionError(f"switch error {acc} not below 0.01")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "main path")
+    log(f"{name} stage_seconds {json.dumps(stages)}")
+    log(f"{name} substages "
+        f"{json.dumps(m['stage_seconds'].get('substages', {}))}")
+    log(f"{name} accuracy vs planted truth {json.dumps(acc)}")
+    if not acc.get("switch_err_vs_truth", 1.0) < max_switch_err:
+        raise AssertionError(f"{name}: switch error {acc} not below "
+                             f"{max_switch_err}")
+    for kname in kernels:
+        if launches[kname] == 0:
+            raise AssertionError(f"{name}: kernel {kname} was not launched "
+                                 "by the run")
     return {"launches": launches, "wall": wall}
+
+
+def e2e_runs(dev, which) -> dict:
+    """The end-to-end runs named in ``which`` (config4, config3c, mixed)."""
+    from ahsoka_tpu_torch import host
+
+    threads = min(os.cpu_count() or 1, 8)
+    bench = dict(debug_readset_files=False, max_coverage=64, threads=threads)
+    diploid = ("dp2_forward", "dp2_backtrace")
+    general = ("dpk_forward", "dpk_backtrace")
+    out = {}
+    if "config4" in which:
+        out["config4"] = phase_e2e(dev, "config4", host.CONFIGS["config4"],
+                                   host.PhasingConfig(**bench), diploid,
+                                   0.01)
+    if "config3c" in which:
+        # scripts/bench_e2e.py's settings for ploidy > 2
+        out["config3c"] = phase_e2e(
+            dev, "config3c", host.CONFIGS["config3c"],
+            host.PhasingConfig(ploidy=4, genotype_prior="balanced",
+                               **bench), general, 0.02)
+    if "mixed" in which:
+        spec = host.SynthSpec(chain_plan=[(60, 2), (60, 3), (60, 4),
+                                          (20, 5)],
+                              span=3, coverage_per_hap=8.0,
+                              error_rate=0.02, seed=11)
+        out["mixed"] = phase_e2e(
+            dev, "mixed", spec,
+            host.PhasingConfig(genotype_prior="balanced", **bench),
+            diploid + general, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
+    return out
+
+
+PHASES = ("env", "kernels", "golden", "config4", "config3c", "mixed")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of env,kernels,golden,e2e for a "
-                         "partial run (prints no result line)")
+                    help=f"comma list of {','.join(PHASES)} for a partial "
+                         "run (prints no result line)")
     args = ap.parse_args(argv)
-    phases = ({"env", "kernels", "golden", "e2e"} if args.phases == "all"
+    phases = (set(PHASES) if args.phases == "all"
               else set(args.phases.split(",")))
+    unknown = phases - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -342,8 +518,8 @@ def main(argv=None) -> int:
     kern = phase_kernels(dev) if "kernels" in phases else None
     if "golden" in phases:
         phase_golden(dev)
-    e2e = phase_e2e(dev, "config4") if "e2e" in phases else None
-    if kern is None or e2e is None or "golden" not in phases:
+    e2e = e2e_runs(dev, phases)
+    if phases != set(PHASES):
         log("partial run: no result line")
         return 0
 
@@ -353,12 +529,14 @@ def main(argv=None) -> int:
         raise AssertionError(f"jax or a jax module was imported: "
                              f"{jax_mods[:5]}")
 
-    t4 = kern["timing"]["config4"]
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": e2e["launches"][name],
-                "max_abs_err": kern["err"][name], "ms": t4[name][0],
-                "plain_ms": t4[name][1]}
-               for name, (src, rep) in KERNEL_META.items()]
+    kernels = []
+    for name, (src, rep, run, case) in KERNEL_META.items():
+        ms, plain_ms = kern["timing"][case][name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep,
+                        "launches": e2e[run]["launches"][name],
+                        "max_abs_err": kern["err"][name], "ms": ms,
+                        "plain_ms": plain_ms})
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ file imports no jax, so on a machine with a card and no jax it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The DP kernels must equal their plain versions exactly; projection key
+The DP kernels must equal their plain versions exactly (the diploid and
+the general-ploidy ones, and each other at ploidy 2); projection key
 tables exactly; scores within rtol = atol = 1e-4 (float32 matmuls summed
 in another order on the card); results byte-equal to the goldens."""
 
@@ -19,9 +20,10 @@ import torch
 from ahsoka_tpu.cluster.editing import cluster_editing
 from ahsoka_tpu.config import PhasingConfig
 from ahsoka_tpu.project.readset import build_chain_readsets
-from ahsoka_tpu.score.pairwise import readset_to_matrix
+from ahsoka_tpu.score.pairwise import AlleleMatrix, readset_to_matrix
 from ahsoka_tpu.thread.states import full_state_counts, full_state_validity
 from ahsoka_tpu_torch.ops import minplus_diploid as md
+from ahsoka_tpu_torch.ops import minplus_stream as ms
 from ahsoka_tpu_torch.state import to_torch
 from ahsoka_tpu_torch.thread import dp_torch
 
@@ -35,6 +37,27 @@ pytestmark = pytest.mark.gpu
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CFG = PhasingConfig()
 KW = dict(switch_cost=CFG.switch_cost, affine_cost=CFG.affine_switch_cost)
+
+
+def tetraploid_matrix(seed, R, P, error_rate=0.05):
+    """Seeded [R, P] allele matrix of reads drawn from four haplotypes
+    over bi- to tetra-allelic positions (reads cover windows of 4-8
+    positions; alleles flip at ``error_rate``)."""
+    rng = np.random.default_rng(seed)
+    n_alleles = rng.integers(2, 5, size=P)
+    haps = rng.integers(0, n_alleles, size=(4, P))
+    alleles = np.full((R, P), -1, dtype=np.int16)
+    for r in range(R):
+        span = int(rng.integers(4, 9))
+        start = int(rng.integers(0, max(1, P - span + 1)))
+        cols = np.arange(start, min(P, start + span))
+        row = haps[r % 4, cols].copy()
+        flip = rng.random(len(cols)) < error_rate
+        row[flip] = (row[flip] + 1) % n_alleles[cols][flip]
+        alleles[r, cols] = row
+    return AlleleMatrix(alleles=alleles,
+                        positions=np.arange(P, dtype=np.int32),
+                        read_names=[f"read{r}" for r in range(R)])
 
 
 @pytest.fixture
@@ -77,15 +100,60 @@ def test_cuda_kernels_match_plain(cuda_device, C, P):
     assert torch.equal(st.cpu(), st_r)
 
 
+def _general(arrays, k, device):
+    ca, nc, co, cs, ge = to_torch(*arrays, device=device)
+    node = dp_torch.node_costs_all(ca, nc, co, cs, ge, full_state_counts(k),
+                                   full_state_validity(k), ploidy=k,
+                                   num_alleles=ge.shape[2], cov_w=1.0,
+                                   geno_w=1.0)
+    fin, bp = ms.minplus_forward_streamed(ca, node, full_state_counts(k),
+                                          ploidy=k, **KW)
+    fs = torch.argmin(fin, dim=1).to(torch.int32)
+    return fin, bp, ms.backtrace_streamed(bp, fs)
+
+
+@pytest.mark.parametrize("k,C,P", [(1, 50, 40), (2, 37, 56), (3, 9, 33),
+                                   (4, 3, 20), (5, 2, 6)])
+def test_cuda_general_kernels_match_plain(cuda_device, k, C, P):
+    dps = [random_dp_inputs(P=P, ploidy=k, num_clusters=2 * k + 1,
+                            seed=k * 1000 + i) for i in range(C)]
+    arrays = dp_torch._pack_group(dps, list(range(C)), P)
+    before = (ms.minplus_forward_streamed.launches,
+              ms.backtrace_streamed.launches)
+    fin, bp, st = _general(arrays, k, cuda_device)
+    torch.cuda.synchronize()
+    assert (ms.minplus_forward_streamed.launches,
+            ms.backtrace_streamed.launches) == (before[0] + 1, before[1] + 1)
+    fin_r, bp_r, st_r = _general(arrays, k, "cpu")
+    assert torch.equal(fin.cpu(), fin_r)
+    assert torch.equal(bp.cpu(), bp_r)
+    assert torch.equal(st.cpu(), st_r)
+
+
+def test_cuda_general_kernel_equals_diploid_kernel(cuda_device):
+    """At ploidy 2 the general forward kernel equals the diploid one bit
+    for bit (config4's DP shape)."""
+    fin_d, bp_d, st_d = _forward(_batch(1000, 56, seed=3), cuda_device)
+    fin_g, bp_g, st_g = _general(_batch(1000, 56, seed=3), 2, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(fin_d, fin_g)
+    assert torch.equal(bp_d, bp_g)
+    assert torch.equal(st_d, st_g)
+
+
 def test_cuda_threading_matches_cpu(cuda_device):
     dps = [random_dp_inputs(P=P, ploidy=2, num_clusters=6, seed=i)
            for i, P in enumerate([5, 12, 13, 30, 7, 64, 1, 140])]
     assert dp_torch.thread_chains_batched(dps, CFG, device=cuda_device) == \
         dp_torch.thread_chains_batched(dps, CFG, device="cpu")
-    tetra = [random_dp_inputs(P=6, ploidy=4, num_clusters=9, seed=0)]
-    with pytest.raises(NotImplementedError, match="queue 2 c"):
-        dp_torch.thread_chains_batched(tetra, PhasingConfig(ploidy=4),
-                                       device=cuda_device)
+    tetra = [random_dp_inputs(P=P, ploidy=4, num_clusters=9, seed=i)
+             for i, P in enumerate([6, 13, 30])]
+    cfg4 = PhasingConfig(ploidy=4)
+    before = ms.minplus_forward_streamed.launches
+    assert dp_torch.thread_chains_batched(tetra, cfg4,
+                                          device=cuda_device) == \
+        dp_torch.thread_chains_batched(tetra, cfg4, device="cpu")
+    assert ms.minplus_forward_streamed.launches > before
 
 
 @pytest.mark.parametrize("error_rate", [0.0, 0.08])
@@ -101,20 +169,26 @@ def test_cuda_projection_matches_cpu(cuda_device, error_rate):
         np.testing.assert_array_equal(g.to_dense(), w.to_dense())
 
 
-def test_cuda_scoring_matches_cpu(cuda_device):
+@pytest.mark.parametrize("ploidy", [2, 4])
+def test_cuda_scoring_matches_cpu(cuda_device, ploidy):
     from ahsoka_tpu_torch.score.device import score_pairs_device_many
 
-    mats = []
-    for er, nb, rph in [(0.05, 6, 10), (0.1, 30, 40)]:
-        bp, al = _sim_chain_inputs(er, nb, rph)
-        mats.append(readset_to_matrix(
-            build_chain_readsets(bp, al, CFG).partial_filtered))
-    got = score_pairs_device_many(mats, CFG, device=cuda_device)
-    want = score_pairs_device_many(mats, CFG, device="cpu")
+    cfg = PhasingConfig(ploidy=ploidy)
+    if ploidy == 2:
+        mats = []
+        for er, nb, rph in [(0.05, 6, 10), (0.1, 30, 40)]:
+            bp, al = _sim_chain_inputs(er, nb, rph)
+            mats.append(readset_to_matrix(
+                build_chain_readsets(bp, al, CFG).partial_filtered))
+    else:
+        mats = [tetraploid_matrix(seed, 40 * (seed + 1), 12 * (seed + 1))
+                for seed in range(3)]
+    got = score_pairs_device_many(mats, cfg, device=cuda_device)
+    want = score_pairs_device_many(mats, cfg, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
-        assert cluster_editing(g, mode=CFG.ce_mode) == \
-            cluster_editing(w, mode=CFG.ce_mode)
+        assert cluster_editing(g, mode=cfg.ce_mode) == \
+            cluster_editing(w, mode=cfg.ce_mode)
 
 
 def test_cuda_golden_diploid(cuda_device, tmp_path):

@@ -1,6 +1,8 @@
 """The port end to end on the CPU: its CLI reproduces the committed golden
-outputs byte for byte, and its run_phase writes the same result files as
-the JAX package's on a synthetic multi-chain input."""
+outputs byte for byte, and its run_phase and CLI write the same result
+files as the JAX package's on synthetic multi-chain inputs: diploid,
+tetraploid, triploid (through the CLI) and mixed ploidy (a ploidy map
+from the planted truth)."""
 
 import dataclasses
 import glob
@@ -94,6 +96,65 @@ def test_run_phase_matches_jax_package(synth):
         _read(str(d / "jax-result.txt"))
     assert _chain_files(str(d / "torch")) == _chain_files(str(d / "jax"))
     assert len(art.threading["paths"]) == 8
+
+
+def _same_outputs(stem_a, stem_b):
+    assert _read(stem_a + "-result.txt") == _read(stem_b + "-result.txt")
+    files = _chain_files(stem_a)
+    assert files and files == _chain_files(stem_b)
+
+
+def test_run_phase_tetraploid_matches_jax_package(tmp_path):
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    gfa, gaf = str(tmp_path / "t.gfa"), str(tmp_path / "t.gaf")
+    write_synthetic(gfa, gaf, SynthSpec(
+        num_chains=3, bubbles_per_chain=12, reads_per_hap=24, ploidy=4,
+        span=3, error_rate=0.02, seed=7))
+    cfg = dataclasses.replace(BENCH, ploidy=4, genotype_prior="balanced")
+    jax_run_phase(gfa, gaf, str(tmp_path / "jax"), cfg)
+    art = run_phase(gfa, gaf, str(tmp_path / "torch"), cfg, device="cpu")
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert {c.ploidy for c in art.threading["configs"]} == {4}
+
+
+def test_cli_triploid_matches_jax_package(tmp_path):
+    from ahsoka_tpu.cli.main import main as jax_cli_main
+
+    gfa, gaf = str(tmp_path / "t.gfa"), str(tmp_path / "t.gaf")
+    write_synthetic(gfa, gaf, SynthSpec(
+        num_chains=2, bubbles_per_chain=10, reads_per_hap=20, ploidy=3,
+        span=3, error_rate=0.02, seed=3))
+    args = ["phase", "-g", gfa, "-a", gaf, "--ploidy", "3",
+            "--genotype-prior", "balanced"]
+    assert jax_cli_main(args + ["-o", str(tmp_path / "jax")]) == 0
+    assert cli_main(args + ["-o", str(tmp_path / "torch"), "--device",
+                            "cpu"]) == 0
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+
+
+def test_run_phase_mixed_ploidy_matches_jax_package(tmp_path):
+    from ahsoka_tpu.graph.alleles import enumerate_allele_paths
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu.utils.accuracy import ploidy_map_from_truth
+    from ahsoka_tpu_torch.pipeline import load_graph_and_bubbles, run_phase
+
+    gfa, gaf = str(tmp_path / "m.gfa"), str(tmp_path / "m.gaf")
+    truth = str(tmp_path / "m.truth")
+    write_synthetic(gfa, gaf, SynthSpec(
+        chain_plan=[(8, 2), (8, 4), (6, 3)], reads_per_hap=20,
+        span=3, error_rate=0.02, seed=5), truth_path=truth)
+    art = load_graph_and_bubbles(gfa, BENCH)
+    pmap = ploidy_map_from_truth(
+        enumerate_allele_paths(art.graph, art.index), truth)
+    assert sorted(pmap.values()) == [2, 3, 4]
+    cfg = dataclasses.replace(BENCH, ploidy_map=pmap,
+                              genotype_prior="balanced")
+    jax_run_phase(gfa, gaf, str(tmp_path / "jax"), cfg)
+    art = run_phase(gfa, gaf, str(tmp_path / "torch"), cfg, device="cpu")
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert {c.ploidy for c in art.threading["configs"]} == {2, 3, 4}
 
 
 def test_resume_skips_done_chains(synth):

@@ -2,7 +2,10 @@
 scores within rtol = atol = 1e-4 (the tolerance of the JAX device tests
 against the host oracle, tests/test_device_parity.py; float32 matmuls and
 logs summed in another order), and identical cluster-editing results on
-the default scoring mode."""
+the default scoring mode.  Ploidy 2 scores diploid simulated chains;
+ploidy 4 scores seeded tetraploid matrices with up to four alleles per
+position, where the WhatsHap mode's greedy slot allocation runs four
+rounds."""
 
 import dataclasses
 
@@ -19,6 +22,7 @@ from ahsoka_tpu.score.pairwise import readset_to_matrix, score_pairs
 from ahsoka_tpu_torch.score import device as tscore
 
 from test_device_parity import _sim_chain_inputs
+from test_torch_cuda import tetraploid_matrix
 
 torch.set_num_threads(1)
 
@@ -38,18 +42,23 @@ def _matrices():
 MATS = None
 
 
-def _mats():
+def _mats(ploidy=2):
     global MATS
+    if ploidy == 4:
+        return [tetraploid_matrix(seed, 40 * (seed + 1), 12 * (seed + 1))
+                for seed in range(3)]
     if MATS is None:
         MATS = _matrices()
     return MATS
 
 
+@pytest.mark.parametrize("ploidy", [2, 4])
 @pytest.mark.parametrize("mode", ["whatshap", "fresh"])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_score_pairs_device_many_matches_jax(mode, weighted):
-    cfg = dataclasses.replace(PhasingConfig(), score_mode=mode)
-    mats = _mats()
+def test_score_pairs_device_many_matches_jax(mode, weighted, ploidy):
+    cfg = dataclasses.replace(PhasingConfig(), score_mode=mode,
+                              ploidy=ploidy)
+    mats = _mats(ploidy)
     mults = None
     if weighted:
         cms = [collapse_reads(m) for m in mats]
@@ -72,10 +81,11 @@ def test_score_pairs_device_matches_jax_and_oracle():
         np.testing.assert_allclose(got, score_pairs(m, cfg), **TOL)
 
 
+@pytest.mark.parametrize("ploidy", [2, 4])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_cluster_editing_identical(weighted):
-    cfg = PhasingConfig()
-    mats = _mats()
+def test_cluster_editing_identical(weighted, ploidy):
+    cfg = PhasingConfig(ploidy=ploidy)
+    mats = _mats(ploidy)
     mults = None
     if weighted:
         cms = [collapse_reads(m) for m in mats]
