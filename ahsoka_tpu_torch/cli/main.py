@@ -8,10 +8,10 @@ plus ``--device``:
     ahsoka-tpu-torch only-bubbles -g <graph.gfa> -o <outstem>
 
 ``--device cuda`` (the default) needs an NVIDIA card and raises without
-one.  Flags for paths the port does not run yet (beam DP, data/chain
-sharding, multi-process layouts, the host backend) are accepted by the
-parser and raise NotImplementedError naming the ROADMAP item.  Ploidy
-1-5 runs on both devices.
+one.  Flags for paths the port does not run yet (data/chain sharding,
+multi-process layouts, the host backend) are accepted by the parser and
+raise NotImplementedError naming the ROADMAP item.  Ploidy 1-6 (ploidy 6
+with ``--dp-beam-width``) runs on both devices.
 """
 
 from __future__ import annotations
@@ -48,8 +48,6 @@ def _unsupported(args) -> Optional[str]:
     if args.backend != "jax":
         return ("--backend host: the host oracle is ahsoka-tpu's "
                 "--backend host; the port runs the device pipeline")
-    if args.dp_beam_width:
-        return "--dp-beam-width: the beam DP (ROADMAP queue 1 item 10)"
     if args.data_shards > 1 or args.chain_shards > 1:
         return ("--data-shards/--chain-shards > 1: sharded layouts "
                 "(ROADMAP queue 1 item 11)")
@@ -81,7 +79,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             PhasingConfig(), ploidy=args.ploidy, ploidy_map=ploidy_map,
             use_genotypes=not args.no_genotypes,
             genotype_prior=args.genotype_prior,
-            max_coverage=args.max_coverage, threads=args.threads)
+            max_coverage=args.max_coverage, threads=args.threads,
+            dp_beam_width=args.dp_beam_width)
         run_phase(args.graph, args.alignments, args.output, config,
                   device=args.device, resume=args.resume,
                   keep_going=args.keep_going, profile_dir=args.profile)

@@ -13,8 +13,13 @@ from the device to another path.  ``keep_going`` keeps its documented
 behaviour (per-chain failures are recorded and the run continues; a
 failed batched DP is retried chain by chain, and logged).
 
+Chains above ``banded_scoring_threshold`` effective reads take banded
+scoring (``score/banded.py``) and the native sparse cluster editing.
+The native helpers (cluster editing, coverage cap) are built and loaded
+once on the calling thread before the worker pool starts: their loaders
+build with g++ at first use, without a lock.
+
 Not ported (raise ``NotImplementedError`` naming the ROADMAP item):
-banded scoring for chains above ``banded_scoring_threshold`` reads,
 data/chain sharding and multi-process chain sharding.
 """
 
@@ -115,9 +120,11 @@ def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
 
 def _chain_cluster_dp_stage(matrix, config, result, scores=None,
                             collapse=_COLLAPSE_UNSET, device="cuda"):
-    """Allele matrix -> DP inputs (dense scoring + cluster editing, plain
-    or over collapsed identical rows).  ``scores`` short-circuits the
-    device scoring when the batched pre-pass already computed it."""
+    """Allele matrix -> DP inputs (dense or, above
+    ``banded_scoring_threshold`` effective rows, banded scoring; cluster
+    editing, plain or over collapsed identical rows).  ``scores``
+    short-circuits the dense scoring when the batched pre-pass already
+    computed it."""
     from ahsoka_tpu.cluster.editing import assignment_from_clusters
     from ahsoka_tpu.cluster.postprocess import build_dp_inputs_from_matrix
     from ahsoka_tpu_torch.score.device import score_pairs_device
@@ -130,12 +137,39 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     effective_rows = (collapse.num_groups if collapse is not None
                       else matrix.num_reads)
     if effective_rows > config.banded_scoring_threshold:
-        raise NotImplementedError(
-            f"a chain with {effective_rows} effective reads needs banded "
-            f"scoring (above banded_scoring_threshold="
-            f"{config.banded_scoring_threshold}), which is not ported "
-            "yet: ROADMAP queue 1 item 9")
-    if collapse is not None:
+        # large chain: banded scoring -> sparse edges -> native sparse
+        # solver; with a collapse the band runs over the distinct rows
+        # and edges weigh m_u * m_v * s(u, v)
+        from ahsoka_tpu.cluster._native_ce import cluster_editing_sparse
+        from ahsoka_tpu_torch.score.banded import score_pairs_banded
+
+        t = time.perf_counter()
+        if collapse is not None:
+            from ahsoka_tpu.project.collapse import expand_clusters
+            eu, ev, ew = score_pairs_banded(collapse.matrix, config,
+                                            mult=collapse.mult,
+                                            device=device)
+            ew = ew * collapse.mult[eu] * collapse.mult[ev]
+            n_nodes = collapse.num_groups
+        else:
+            eu, ev, ew = score_pairs_banded(matrix, config, device=device)
+            n_nodes = matrix.num_reads
+        marks["scoring"] = time.perf_counter() - t
+        log.info("banded scoring: %d rows -> %d edges in %.1fs",
+                 n_nodes, len(ew), marks["scoring"])
+        t = time.perf_counter()
+        with substage.timed("clustering.solver"):
+            clusters = cluster_editing_sparse(n_nodes, eu, ev, ew,
+                                              mode=config.ce_mode)
+        if clusters is None:
+            raise RuntimeError(
+                "sparse cluster editing unavailable for a chain above "
+                "the banded-scoring threshold (no C++ toolchain)")
+        if collapse is not None:
+            with substage.timed("clustering.expand"):
+                clusters = expand_clusters(clusters, collapse.inverse)
+        marks["clustering"] = time.perf_counter() - t
+    elif collapse is not None:
         from ahsoka_tpu.project.collapse import expand_clusters
         import numpy as np
 
@@ -171,6 +205,23 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     result.num_clusters = len(clusters)
     result.num_positions = dp.num_positions
     return dp
+
+
+def _load_native_helpers(config: PhasingConfig) -> None:
+    """Build (g++, at first use) and load the native cluster editing and
+    coverage-cap libraries on this thread, before any worker starts.
+    Their loaders hold no lock: a worker that loads a half-written
+    library marks it failed for the rest of the process, after which
+    dense cluster editing runs its Python fallback and the sparse solver
+    that banded chains need is missing."""
+    from ahsoka_tpu.cluster._native_ce import native_ce_available
+
+    if config.max_coverage is not None:
+        from ahsoka_tpu.project._native_covcap import _load
+        _load()
+    if not native_ce_available():
+        log.warning("native cluster editing unavailable: dense chains "
+                    "take the Python solver, banded chains fail")
 
 
 def _dp_frontier_width(config: PhasingConfig, S: int) -> int:
@@ -242,6 +293,7 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                                                   thread_chains_batched)
 
     check_supported(config)
+    _load_native_helpers(config)
     columns = getattr(art, "gaf_columns", None)
 
     # resume decisions are serial and cheap; output order is the

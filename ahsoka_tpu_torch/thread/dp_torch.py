@@ -6,12 +6,13 @@ C(3k-1, k) states, invalid states at node cost 1e30), the same position
 bucketing with sentinel positions, and the same grouping of chains by
 (padded positions, allele count, ploidy).
 
-Dispatch per group (``thread/dp_kernels.py``): ploidy 2 takes the
-diploid kernels and ploidy 1 and 3-5 the general-ploidy ones, for every
-group whatever its size.  On CUDA the wrappers launch the hand-written
-kernels; on the CPU they run their plain PyTorch versions, which take any
-ploidy.  The beam DP (``dp_beam_width``) raises ``NotImplementedError``
-on both (ROADMAP queue 1 item 10).
+Dispatch per group: a group whose state space exceeds ``dp_beam_width``
+(ploidy 6, or any ploidy with a narrower beam) takes the beam-pruned DP
+(``thread/dp_beam.py``, torch code on either device); otherwise
+(``thread/dp_kernels.py``) ploidy 2 takes the diploid kernels and ploidy
+1 and 3-5 the general-ploidy ones, for every group whatever its size.
+On CUDA the wrappers launch the hand-written kernels; on the CPU they run
+their plain PyTorch versions, which take any ploidy.
 """
 
 from __future__ import annotations
@@ -58,18 +59,27 @@ def node_costs_all(candidates, num_candidates, coverage, consensus,
     and valid_table [M+1, S] (``thread/states.py``).
 
     The coverage term sums over the M slots left to right, one rounding
-    per add; the genotype term is exact (small integers)."""
+    per add; the genotype term is exact (small integers).  Bit-equal to
+    ``dp_jax.node_costs_all`` as the jitted DP programs compile it."""
     k = ploidy
     dev = candidates.device
     countsf = torch.as_tensor(counts_table, device=dev).to(torch.float32)
     valid_t = torch.as_tensor(valid_table, device=dev)
     valid = valid_t[num_candidates.long()]                   # [C, P, S]
     M = countsf.shape[1]
-    target = countsf / k                                     # [S, M]
-    cov_cost = torch.abs(coverage[:, :, None, 0] - target[:, 0])
+    # XLA compiles coverage - count / k into one fused multiply-add with
+    # the float32 reciprocal of k, fma(-count, 1/k, coverage), rounded
+    # once (it differs from two roundings at k = 3, 5, 6).  Emulated in
+    # float64, where the product and the difference are exact.
+    target = countsf.double() * float(np.float32(1) / np.float32(k))
+    cov64 = coverage.double()
+
+    def term(m):
+        return torch.abs((cov64[:, :, None, m] - target[:, m]).float())
+
+    cov_cost = term(0)
     for m in range(1, M):
-        cov_cost = cov_cost + torch.abs(coverage[:, :, None, m]
-                                        - target[:, m])
+        cov_cost = cov_cost + term(m)
     alleles = torch.arange(num_alleles, device=dev)
     cons_oh = (consensus[..., None] == alleles).to(torch.float32)
     cons_oh = cons_oh * (candidates >= 0).to(torch.float32)[..., None]
@@ -112,15 +122,14 @@ def thread_states(ca, nc, co, cs, ge, config: PhasingConfig, *,
     counts_table = full_state_counts(k)
     valid_table = full_state_validity(k)
     geno_w = (config.genotype_cost_weight if config.use_genotypes else 0.0)
-    if _beam_width_for(config, counts_table.shape[0]):
-        raise NotImplementedError(
-            "the beam-pruned threading DP (dp_beam_width > 0 with more "
-            "states than the beam) is not ported yet: ROADMAP queue 1 "
-            "item 10")
     kw = dict(ploidy=k, num_alleles=num_alleles,
               switch_cost=float(config.switch_cost),
               affine_cost=float(config.affine_switch_cost),
               cov_w=float(config.coverage_cost_weight), geno_w=float(geno_w))
+    bw = _beam_width_for(config, counts_table.shape[0])
+    if bw:
+        from ahsoka_tpu_torch.thread.dp_beam import thread_beam
+        return thread_beam(ca, nc, co, cs, ge, beam_width=bw, **kw)
     from ahsoka_tpu_torch.thread.dp_kernels import (thread_batch_diploid,
                                                     thread_batch_streamed)
     thread_batch = thread_batch_diploid if k == 2 else thread_batch_streamed

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                          # all phases, one CUDA card
     python3 chip_smoke.py --phases env,kernels     # build + kernel checks only
+    python3 chip_smoke.py --phases env,config5s    # one end-to-end run
 
 Runs from the repository root with no install and no jax:
 
@@ -24,29 +25,49 @@ Runs from the repository root with no install and no jax:
    ``run_phase``, and the golden tetraploid one through the port's CLI
    (``--ploidy 4 --no-genotypes``), on the card, byte-equal to
    ``tests/data``;
-4. config4 (chr20 scale: 1000 chains x 50 bubbles, 1M GAF records) end to
-   end on the card with the bench settings (no readset debug files,
-   coverage cap 64): every chain phased with no failure, both diploid
-   kernels launched by the run, paths identical to re-threading the run's
-   DP inputs with the plain versions on the CPU, planted-truth switch
-   error below 0.01;
+4. config4s (config4's chains at 1/10 of its chain count: 100 chains x
+   50 bubbles, 100k GAF records; cut from config4 to keep the whole smoke
+   near five minutes once config5s joined it) end to end on the card with
+   the bench settings (no readset debug files, coverage cap 64): every
+   chain phased with no failure, both diploid kernels launched by the
+   run, paths identical to re-threading the run's DP inputs with the
+   plain versions on the CPU, planted-truth switch error below 0.01;
 5. config3c (20 tetraploid chains x 200 bubbles, 42,720 GAF records) end
    to end on the card with the same settings and the balanced genotype
    prior: every chain phased, both general kernels launched, paths
    identical to a plain CPU re-threading, switch error below 0.02; then a
    small mixed-ploidy run (one chain each of ploidy 2, 3, 4 and 5, a
    ploidy map from the planted truth) that launches all four kernels,
-   paths identical to a plain CPU re-threading.
+   paths identical to a plain CPU re-threading;
+6. the beam-pruned DP (ploidy 6, ``thread/dp_beam.py``, torch code) on the
+   card against the same function on the CPU at config5s's longest
+   hexaploid shape (k=6, B=2048, C=2, P=112) and on an all-ties batch:
+   node costs, final costs, beam states, backpointers and states exactly
+   equal; CUDA-event median on the card, host clock on the CPU;
+7. banded scoring (``score/banded.py``) on the card against the CPU on one
+   seeded chain of 8,000 reads over 1,500 positions: edges (u, v) equal
+   and in the same order, weights within rtol = atol = 1e-5; wall time of
+   both;
+8. config5s (the JAX package's whole-genome shape at 1/10 scale: 300
+   ragged chains of ploidy 2, 4 and 6, ~396k GAF records) end to end on
+   the card with the bench settings, the balanced genotype prior, beam
+   width 2048 and a ploidy map from the planted truth: every chain
+   phased, all four kernels launched, the beam taken by every hexaploid
+   DP group, banded scoring by at least one chain, paths identical to a
+   plain CPU re-threading (the beam groups included), switch error below
+   0.02.
 
-Each end-to-end run sets the kernels' launch counts to 0 just before it
-and reads them just after.  Any failure raises and exits non-zero.  The
-last line is the result:
+Each end-to-end run sets the kernels' launch counts, and the counts of
+beam groups and banded chains run on the card, to 0 just before it and
+reads them just after.  Any failure raises and exits non-zero.  The last
+line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-before it stand the card's ``nvidia-smi`` name/power-limit line and a
+before it stand the card's ``nvidia-smi`` name/power-limit line, a
 ``{"kernels": [...]}`` line with each kernel's launches in its end-to-end
-run (config4 for the diploid kernels, config3c for the general ones), its
+run (config4s for the diploid kernels, config3c for the general ones), its
 error against the plain version and both times (at config4's and
-config3c's DP shapes).
+config3c's DP shapes), and the ``{"beam": ...}``, ``{"banded": ...}``
+and ``{"config5s": ...}`` lines with the times and counts of phases 6-8.
 """
 
 from __future__ import annotations
@@ -65,15 +86,16 @@ DATA = os.path.join(ROOT, "tests", "data")
 
 SWITCH, AFFINE = 32.0, 8.0            # PhasingConfig defaults
 MIXED_MAX_SWITCH_ERR = 0.02
+BEAM_WIDTH = 2048                     # scripts/bench_e2e.py's beam width
 LIBS = ("minplus_diploid", "minplus_stream")
 # name -> (source, TPU kernel it replaces, end-to-end run that reads its
 # launches, kernel-phase case that gives its times)
 KERNEL_META = {
     "dp2_forward": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                    "ahsoka_tpu/ops/minplus_diploid.py:56", "config4",
+                    "ahsoka_tpu/ops/minplus_diploid.py:56", "config4s",
                     "config4"),
     "dp2_backtrace": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                      "ahsoka_tpu/ops/minplus_diploid.py:188", "config4",
+                      "ahsoka_tpu/ops/minplus_diploid.py:188", "config4s",
                       "config4"),
     "dpk_forward": ("ahsoka_tpu_torch/csrc/minplus_stream.cu",
                     "ahsoka_tpu/ops/minplus_stream.py:186 (_stream_kernel_ge);"
@@ -379,20 +401,56 @@ def _ploidy_map_from_truth(gfa: str, truth: str, cfg) -> dict:
     return host.ploidy_map_from_truth(paths, truth)
 
 
+def _reset_path_counts() -> None:
+    from ahsoka_tpu_torch.score.banded import score_pairs_banded
+    from ahsoka_tpu_torch.thread import dp_kernels
+    from ahsoka_tpu_torch.thread.dp_beam import thread_beam
+
+    dp_kernels.reset_launch_counts()
+    thread_beam.launches = 0
+    score_pairs_banded.launches = 0
+
+
+def _path_counts() -> dict:
+    """Kernel launches, beam groups and banded chains run on the card
+    since the last reset."""
+    from ahsoka_tpu_torch.score.banded import score_pairs_banded
+    from ahsoka_tpu_torch.thread import dp_kernels
+    from ahsoka_tpu_torch.thread.dp_beam import thread_beam
+
+    return dict(dp_kernels.launch_counts(), beam=thread_beam.launches,
+                banded=score_pairs_banded.launches)
+
+
+def _beam_groups(th) -> int:
+    """DP groups of a run that take the beam ((P_pad, A, ploidy) groups
+    of ``thread_chains_batched`` whose state space exceeds the beam)."""
+    from ahsoka_tpu.thread.states import max_states
+    from ahsoka_tpu_torch.thread.dp_torch import (_beam_width_for,
+                                                  _bucket_positions)
+
+    return len({(_bucket_positions(dp.num_positions),
+                 dp.genotypes.shape[1], c.ploidy)
+                for dp, c in zip(th["dps"], th["configs"])
+                if dp.num_positions
+                and _beam_width_for(c, max_states(c.ploidy))})
+
+
 def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
-              ploidy_map: bool = False) -> dict:
+              ploidy_map: bool = False, beam: bool = False,
+              banded: bool = False) -> dict:
     """``spec`` end to end on the card: every chain phased, ``kernels``
     launched by the run, paths identical to a plain CPU re-threading of
     the run's DP inputs, planted-truth switch error below
     ``max_switch_err``.  ``ploidy_map``: per-chain ploidies from the
-    planted truth."""
+    planted truth.  ``beam``: every beam DP group ran on the card (and
+    there is one); ``banded``: at least one chain was scored banded."""
     import dataclasses
 
     from ahsoka_tpu.utils import substage
     from ahsoka_tpu_torch import host
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.pipeline import run_phase
-    from ahsoka_tpu_torch.thread import dp_kernels
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
 
     work = os.path.join(WORK, name)
@@ -413,14 +471,14 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     outstem = os.path.join(work, "run")
 
     substage.drain()          # marks of an earlier run's CPU re-threading
-    dp_kernels.reset_launch_counts()
+    _reset_path_counts()
     t0 = time.perf_counter()
     art = run_phase(gfa, gaf, outstem, cfg, device=dev, keep_going=False)
     synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = dp_kernels.launch_counts()
-    log(f"{name} run_phase on the card: {wall:.2f} s; kernel launches "
-        f"{json.dumps(launches)}")
+    launches = _path_counts()
+    log(f"{name} run_phase on the card: {wall:.2f} s; kernel launches, "
+        f"beam groups and banded chains {json.dumps(launches)}")
 
     with open(f"{outstem}-metrics.json") as fh:
         m = json.load(fh)
@@ -448,6 +506,13 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     log(f"{name} substages "
         f"{json.dumps(m['stage_seconds'].get('substages', {}))}")
     log(f"{name} accuracy vs planted truth {json.dumps(acc)}")
+    slow = sorted(m["chains"], key=lambda c: -c["stage_seconds"].get(
+        "clustering", 0.0))[:5]
+    log(f"{name} slowest chains in clustering (chain, bubbles, reads, "
+        "clusters, clustering s, scoring s): " + json.dumps(
+            [(c["chain_id"], c["bubbles"], c["reads"], c["clusters"],
+              c["stage_seconds"].get("clustering"),
+              c["stage_seconds"].get("scoring")) for c in slow]))
     if not acc.get("switch_err_vs_truth", 1.0) < max_switch_err:
         raise AssertionError(f"{name}: switch error {acc} not below "
                              f"{max_switch_err}")
@@ -455,11 +520,21 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
         if launches[kname] == 0:
             raise AssertionError(f"{name}: kernel {kname} was not launched "
                                  "by the run")
-    return {"launches": launches, "wall": wall}
+    groups = _beam_groups(th)
+    if beam and not 0 < groups == launches["beam"]:
+        raise AssertionError(f"{name}: {launches['beam']} of {groups} beam "
+                             "DP groups ran on the card")
+    if banded and launches["banded"] == 0:
+        raise AssertionError(f"{name}: no chain took banded scoring")
+    return {"launches": launches, "wall": wall, "beam_groups": groups,
+            "stage_seconds": stages, "accuracy": acc,
+            "clustering_solver_cpu_s": m["stage_seconds"].get(
+                "substages", {}).get("clustering.solver")}
 
 
 def e2e_runs(dev, which) -> dict:
-    """The end-to-end runs named in ``which`` (config4, config3c, mixed)."""
+    """The end-to-end runs named in ``which`` (config4s, config3c, mixed,
+    config5s)."""
     from ahsoka_tpu_torch import host
 
     threads = min(os.cpu_count() or 1, 8)
@@ -467,10 +542,11 @@ def e2e_runs(dev, which) -> dict:
     diploid = ("dp2_forward", "dp2_backtrace")
     general = ("dpk_forward", "dpk_backtrace")
     out = {}
-    if "config4" in which:
-        out["config4"] = phase_e2e(dev, "config4", host.CONFIGS["config4"],
-                                   host.PhasingConfig(**bench), diploid,
-                                   0.01)
+    if "config4s" in which:
+        out["config4s"] = phase_e2e(dev, "config4s",
+                                    host.CONFIGS["config4s"],
+                                    host.PhasingConfig(**bench), diploid,
+                                    0.01)
     if "config3c" in which:
         # scripts/bench_e2e.py's settings for ploidy > 2
         out["config3c"] = phase_e2e(
@@ -486,10 +562,127 @@ def e2e_runs(dev, which) -> dict:
             dev, "mixed", spec,
             host.PhasingConfig(genotype_prior="balanced", **bench),
             diploid + general, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
+    if "config5s" in which:
+        # scripts/bench_e2e.py's settings, the beam width it passes
+        out["config5s"] = phase_e2e(
+            dev, "config5s", host.CONFIGS["config5s"],
+            host.PhasingConfig(genotype_prior="balanced",
+                               dp_beam_width=BEAM_WIDTH, **bench),
+            diploid + general, 0.02, ploidy_map=True, beam=True,
+            banded=True)
     return out
 
 
-PHASES = ("env", "kernels", "golden", "config4", "config3c", "mixed")
+# ---------------------------------------------------------------- phase 6
+def phase_beam(dev) -> dict:
+    """The beam DP on the card against the CPU, exactly, at config5s's
+    longest hexaploid group shape and on an all-ties batch."""
+    import torch
+
+    from ahsoka_tpu.thread.states import full_state_counts
+    from ahsoka_tpu_torch.thread import dp_beam
+
+    k = 6
+    counts = full_state_counts(k)
+
+    def run(cand, node):
+        fin, bs, bp = dp_beam.dp_forward_beam(
+            cand, node, counts, ploidy=k, beam_width=BEAM_WIDTH,
+            switch_cost=SWITCH, affine_cost=AFFINE)
+        slot = torch.argmin(fin, dim=1).to(torch.int32)
+        return fin, bs, bp, dp_beam.backtrace_beam(bp, bs, slot)
+
+    out = {}
+    for name, C, P in (("k6", 2, 112), ("all_ties_k6", 2, 24)):
+        ties = name.startswith("all_ties")
+        arrays = random_dp_batch(C, P, seed=C * 7919 + P + 4 * 104729,
+                                 ploidy=k)
+        if ties:
+            all_ties(arrays)
+        cand, node = _node_costs(arrays, dev, k, ties)
+        if not torch.equal(node.cpu(), _node_costs(arrays, "cpu", k,
+                                                   ties)[1]):
+            raise AssertionError(f"beam {name}: node costs differ between "
+                                 "the card and the CPU")
+        got = run(cand, node)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run(cand.cpu(), node.cpu())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        for what, g, w in zip(("final costs", "beam states", "backptrs",
+                               "states"), got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"beam {name}: {what} differ between "
+                                     "the card and the CPU")
+        if ties and not bool((want[0] == want[0][:, :1]).sum(dim=1).gt(1)
+                             .all()):
+            raise AssertionError("beam all_ties_k6: no tied frontier")
+        ms = _median_ms(lambda: run(cand, node), 3)
+        out[name] = {"C": C, "P": P, "k": k, "B": BEAM_WIDTH,
+                     "ms": ms, "cpu_ms": cpu_ms}
+        log(f"beam {name} k={k} B={BEAM_WIDTH} C={C} P={P}: card == CPU "
+            f"exactly; card {ms:.2f} ms, CPU {cpu_ms:.1f} ms "
+            f"({torch.get_num_threads()} threads)")
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+def banded_matrix(R: int, P: int, seed: int):
+    """Seeded diploid chain matrix: R reads of 6-12 consecutive
+    positions (starts sorted, so rows are ordered by first position) from
+    two haplotypes over P biallelic positions, alleles flipped at 2%."""
+    import numpy as np
+
+    from ahsoka_tpu.score.pairwise import AlleleMatrix
+
+    rng = np.random.default_rng(seed)
+    haps = rng.integers(0, 2, size=(2, P))
+    starts = np.sort(rng.integers(0, P - 6, size=R))
+    alleles = np.full((R, P), -1, dtype=np.int16)
+    for r, s0 in enumerate(starts):
+        cols = np.arange(s0, min(P, s0 + int(rng.integers(6, 13))))
+        row = haps[r % 2, cols]
+        flip = rng.random(len(cols)) < 0.02
+        alleles[r, cols] = np.where(flip, 1 - row, row)
+    return AlleleMatrix(alleles=alleles,
+                        positions=np.arange(P, dtype=np.int32),
+                        read_names=[f"read{r}" for r in range(R)])
+
+
+def phase_banded(dev) -> dict:
+    """Banded scoring on the card against the CPU on one seeded chain."""
+    import numpy as np
+
+    from ahsoka_tpu_torch import host
+    from ahsoka_tpu_torch.device import synchronize
+    from ahsoka_tpu_torch.score.banded import score_pairs_banded
+
+    R, P = 8000, 1500
+    matrix = banded_matrix(R, P, seed=9)
+    cfg = host.PhasingConfig()
+    score_pairs_banded(matrix, cfg, device=dev)          # warm up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    gu, gv, gw = score_pairs_banded(matrix, cfg, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cu, cv, cw = score_pairs_banded(matrix, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not (np.array_equal(gu, cu) and np.array_equal(gv, cv)):
+        raise AssertionError("banded: edge lists differ between the card "
+                             "and the CPU")
+    err = float(np.abs(gw - cw).max(initial=0.0))
+    if not np.allclose(gw, cw, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"banded: weights differ by up to {err}")
+    log(f"banded R={R} P={P}: {len(gu)} edges, equal and in order on the "
+        f"card and the CPU, max |dw| {err:.3g}; card {card_s:.3f} s, CPU "
+        f"{cpu_s:.2f} s")
+    return {"R": R, "P": P, "edges": int(len(gu)), "max_abs_err": err,
+            "s": card_s, "cpu_s": cpu_s}
+
+
+PHASES = ("env", "kernels", "golden", "config4s", "config3c", "mixed",
+          "beam", "banded", "config5s")
 
 
 def main(argv=None) -> int:
@@ -519,6 +712,8 @@ def main(argv=None) -> int:
     if "golden" in phases:
         phase_golden(dev)
     e2e = e2e_runs(dev, phases)
+    beam = phase_beam(dev) if "beam" in phases else None
+    banded = phase_banded(dev) if "banded" in phases else None
     if phases != set(PHASES):
         log("partial run: no result line")
         return 0
@@ -537,6 +732,12 @@ def main(argv=None) -> int:
                         "launches": e2e[run]["launches"][name],
                         "max_abs_err": kern["err"][name], "ms": ms,
                         "plain_ms": plain_ms})
+    c5 = e2e["config5s"]
+    log(json.dumps({"beam": beam}))
+    log(json.dumps({"banded": banded}))
+    log(json.dumps({"config5s": {
+        k: c5[k] for k in ("launches", "beam_groups", "wall",
+                           "clustering_solver_cpu_s", "stage_seconds")}}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ file imports no jax, so on a machine with a card and no jax it runs as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The DP kernels must equal their plain versions exactly (the diploid and
-the general-ploidy ones, and each other at ploidy 2); projection key
-tables exactly; scores within rtol = atol = 1e-4 (float32 matmuls summed
-in another order on the card); results byte-equal to the goldens."""
+the general-ploidy ones, and each other at ploidy 2), and so must the
+beam DP; projection key tables exactly; dense scores within rtol = atol
+= 1e-4 (float32 matmuls summed in another order on the card); banded
+edges equal and in order, weights within rtol = atol = 1e-5; results
+byte-equal to the goldens."""
 
 import os
 import shutil
@@ -58,6 +60,17 @@ def tetraploid_matrix(seed, R, P, error_rate=0.05):
     return AlleleMatrix(alleles=alleles,
                         positions=np.arange(P, dtype=np.int32),
                         read_names=[f"read{r}" for r in range(R)])
+
+
+def sorted_by_first(matrix):
+    """Rows reordered by first covered position (banded scoring's input
+    order)."""
+    P = matrix.alleles.shape[1]
+    first = np.where(matrix.alleles >= 0, np.arange(P), P).min(axis=1)
+    order = np.argsort(first, kind="stable")
+    return AlleleMatrix(alleles=matrix.alleles[order],
+                        positions=matrix.positions,
+                        read_names=[matrix.read_names[i] for i in order])
 
 
 @pytest.fixture
@@ -206,3 +219,63 @@ def test_cuda_golden_diploid(cuda_device, tmp_path):
         with open(tmp_path / got, "rb") as a, \
                 open(os.path.join(DATA, want), "rb") as b:
             assert a.read() == b.read(), got
+
+
+@pytest.mark.parametrize("k,B,ties", [(6, 256, False), (3, 8, True)])
+def test_cuda_beam_matches_cpu(cuda_device, k, B, ties):
+    from ahsoka_tpu_torch.thread import dp_beam
+
+    dps = [random_dp_inputs(P=12, ploidy=k, num_clusters=2 * k + 1,
+                            seed=k * 100 + i) for i in range(2)]
+    ca, nc, co, cs, ge = dp_torch._pack_group(dps, [0, 1], 12)
+    if ties:
+        ca[:] = -1
+        ca[:, :, :2] = [0, 1]
+        nc[:] = 2
+        co[:] = 0.0
+        co[:, :, :2] = 0.5
+        cs[:] = 0
+
+    def run(device):
+        t = to_torch(ca, nc, co, cs, ge, device=device)
+        node = dp_torch.node_costs_all(*t, full_state_counts(k),
+                                       full_state_validity(k), ploidy=k,
+                                       num_alleles=2, cov_w=1.0, geno_w=1.0)
+        fwd = dp_beam.dp_forward_beam(t[0], node, full_state_counts(k),
+                                      ploidy=k, beam_width=B, **KW)
+        states = dp_beam.thread_beam(*t, ploidy=k, num_alleles=2,
+                                     beam_width=B, cov_w=1.0, geno_w=1.0,
+                                     **KW)
+        return (node,) + fwd + (states,)
+
+    before = dp_beam.thread_beam.launches
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert dp_beam.thread_beam.launches == before + 1
+    for g, w in zip(got, run("cpu")):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_cuda_threading_beam_matches_cpu(cuda_device):
+    cfg6 = PhasingConfig(ploidy=6, dp_beam_width=512)
+    dps = [random_dp_inputs(P=P, ploidy=6, num_clusters=13, seed=P)
+           for P in (5, 9, 14)]
+    assert dp_torch.thread_chains_batched(dps, cfg6, device=cuda_device) \
+        == dp_torch.thread_chains_batched(dps, cfg6, device="cpu")
+
+
+@pytest.mark.parametrize("block", [64, 1024])
+@pytest.mark.parametrize("mode", ["whatshap", "fresh"])
+def test_cuda_banded_matches_cpu(cuda_device, mode, block):
+    from ahsoka_tpu_torch.score.banded import score_pairs_banded
+
+    cfg = PhasingConfig(ploidy=4, score_mode=mode)
+    m = sorted_by_first(tetraploid_matrix(5, 1500, 300))
+    before = score_pairs_banded.launches
+    gu, gv, gw = score_pairs_banded(m, cfg, block=block, device=cuda_device)
+    assert score_pairs_banded.launches == before + 1
+    cu, cv, cw = score_pairs_banded(m, cfg, block=block, device="cpu")
+    assert len(cu) > 1000
+    np.testing.assert_array_equal(gu, cu)
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_allclose(gw, cw, rtol=1e-5, atol=1e-5)

@@ -60,19 +60,28 @@ def test_thread_chain_device_matches_jax(seed):
 
 @pytest.mark.parametrize("ploidy", [2, 3, 4])
 def test_node_costs_all_matches_jax(ploidy):
+    """Bit-equal to ``dp_jax.node_costs_all`` jitted with the state
+    tables and weights as arguments, as the JAX package's DP programs run
+    it (XLA fuses coverage - count / k into one multiply-add)."""
     dps = [random_dp_inputs(P=16, ploidy=ploidy, num_clusters=7, seed=i)
            for i in range(4)]
     arrays = dp_torch._pack_group(dps, list(range(4)), 16)
     counts, valid = full_state_counts(ploidy), full_state_validity(ploidy)
+
+    @jax.jit
+    def fn(ca, nc, co, cs, ge, counts_t, valid_t, cov_w, geno_w):
+        return jax.vmap(lambda *a: dp_jax.node_costs_all(
+            *a, counts_t, valid_t, ploidy, 2, cov_w, geno_w)[0])(
+                ca, nc, co, cs, ge)
+
     for cov_w, geno_w in [(1.0, 1.0), (0.7, 0.0)]:
         got = dp_torch.node_costs_all(
             *to_torch(*arrays, device="cpu"), counts, valid, ploidy=ploidy,
             num_alleles=2, cov_w=cov_w, geno_w=geno_w).numpy()
-        fn = jax.vmap(lambda *a: dp_jax.node_costs_all(
-            *a, jnp.asarray(counts), jnp.asarray(valid), ploidy, 2,
-            jnp.float32(cov_w), jnp.float32(geno_w))[0])
-        want = np.asarray(fn(*[jnp.asarray(a) for a in arrays]))
-        np.testing.assert_allclose(got, want, rtol=1e-6)
+        want = np.asarray(fn(*[jnp.asarray(a) for a in arrays],
+                             jnp.asarray(counts), jnp.asarray(valid),
+                             jnp.float32(cov_w), jnp.float32(geno_w)))
+        np.testing.assert_array_equal(got, want)
 
 
 def test_bucket_positions_match_jax():

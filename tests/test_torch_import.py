@@ -102,7 +102,7 @@ def test_wrappers_check_dtype_shape_contiguity():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dp-beam-width", "16"], ["--data-shards", "2"],
+    ["--num-processes", "2"], ["--data-shards", "2"],
     ["--chain-shards", "2"], ["--process-sharding", "chains"],
     ["--backend", "host"]])
 def test_cli_unported_flags_raise(tmp_path, argv):
@@ -113,11 +113,15 @@ def test_cli_unported_flags_raise(tmp_path, argv):
 
 
 def test_beam_dp_raises_not_implemented():
+    """The beam DP is ported: a configured beam narrower than the state
+    space runs (it raised NotImplementedError before) and threads like
+    the JAX package."""
     from ahsoka_tpu.config import PhasingConfig
+    from ahsoka_tpu.thread.dp_jax import thread_chains_batched as jax_tcb
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
 
     from test_dp import random_dp_inputs
     cfg = PhasingConfig(ploidy=4, dp_beam_width=16)
     dp = random_dp_inputs(P=6, ploidy=4, num_clusters=6, seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        thread_chains_batched([dp], cfg, device="cpu")
+    assert thread_chains_batched([dp], cfg, device="cpu") == \
+        jax_tcb([dp], cfg)

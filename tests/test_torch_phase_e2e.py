@@ -1,9 +1,11 @@
 """The port end to end on the CPU: its CLI reproduces the committed golden
 outputs byte for byte, and its run_phase and CLI write the same result
 files as the JAX package's on synthetic multi-chain inputs: diploid,
-tetraploid, triploid (through the CLI) and mixed ploidy (a ploidy map
-from the planted truth)."""
+tetraploid, triploid (through the CLI), mixed ploidy (a ploidy map from
+the planted truth), hexaploid through the beam DP, and chains forced onto
+banded scoring."""
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -195,12 +197,114 @@ def test_keep_going_retries_threading_per_chain(synth, monkeypatch):
 
 
 def test_banded_scoring_raises_not_implemented(synth):
+    """Banded scoring is ported: chains above the threshold (every chain
+    here) no longer raise NotImplementedError; they are scored banded
+    and write the JAX package's result files."""
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
     from ahsoka_tpu_torch.pipeline import run_phase
 
     d, gfa, gaf = synth
     cfg = dataclasses.replace(BENCH, banded_scoring_threshold=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    jax_run_phase(gfa, gaf, str(d / "jaxbanded"), cfg)
+    with _count_banded() as calls:
         run_phase(gfa, gaf, str(d / "banded"), cfg, device="cpu")
+    assert len(calls) == 8
+    _same_outputs(str(d / "banded"), str(d / "jaxbanded"))
+
+
+@contextlib.contextmanager
+def _count_banded():
+    """Record each call of the port's banded scoring."""
+    from ahsoka_tpu_torch.score import banded
+
+    calls = []
+    real = banded.score_pairs_banded
+
+    def spy(matrix, *a, **k):
+        calls.append(matrix.num_reads)
+        return real(matrix, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(banded, "score_pairs_banded", spy)
+        yield calls
+
+
+def test_banded_chain_matches_jax_package(tmp_path):
+    """The forced-banded diploid chain of tests/test_banded.py (threshold
+    100): the same result file as the JAX package."""
+    from util import simulate_diploid
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    glines, gaf, _hap_a, _hap_b = simulate_diploid(
+        num_bubbles=40, reads_per_hap=120, span=4, error_rate=0.02)
+    (tmp_path / "g.gfa").write_text("".join(glines))
+    (tmp_path / "r.gaf").write_text("".join(gaf))
+    cfg = dataclasses.replace(
+        PhasingConfig(debug_readset_files=False),
+        banded_scoring_threshold=100)
+    args = (str(tmp_path / "g.gfa"), str(tmp_path / "r.gaf"))
+    jax_run_phase(*args, str(tmp_path / "jax"), cfg)
+    with _count_banded() as calls:
+        run_phase(*args, str(tmp_path / "torch"), cfg, device="cpu")
+    assert calls and max(calls) > 100
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+
+
+def test_hexaploid_beam_matches_jax_package(tmp_path):
+    """The hexaploid spec of tests/test_beam_dp.py (beam 512): the same
+    result file as the JAX package, and the planted haplotypes
+    recovered exactly."""
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu.utils.accuracy import score_phased_output
+    from ahsoka_tpu_torch.pipeline import run_phase
+
+    gfa, gaf = str(tmp_path / "g.gfa"), str(tmp_path / "r.gaf")
+    truth = str(tmp_path / "g.truth")
+    write_synthetic(gfa, gaf, SynthSpec(num_chains=1, bubbles_per_chain=8,
+                                        reads_per_hap=12, ploidy=6, span=4,
+                                        error_rate=0.0), truth_path=truth)
+    cfg = PhasingConfig(ploidy=6, dp_beam_width=512,
+                        genotype_prior="balanced",
+                        debug_readset_files=False)
+    jax_run_phase(gfa, gaf, str(tmp_path / "jax"), cfg)
+    art = run_phase(gfa, gaf, str(tmp_path / "torch"), cfg, device="cpu")
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert {c.ploidy for c in art.threading["configs"]} == {6}
+    acc = score_phased_output(str(tmp_path / "torch"), truth)
+    assert acc["phased_bubble_frac"] == 1.0
+    assert acc["switch_err_vs_truth"] == 0.0
+    assert acc["hamming_vs_truth"] == 0.0
+
+
+def test_mixed_2_4_6_banded_matches_jax_package(tmp_path):
+    """A small config5-shaped run: ploidy 2, 4 and 6 chains from the
+    planted truth, the beam on the hexaploid chain and a forced banded
+    threshold that sends the larger chains to banded scoring."""
+    from ahsoka_tpu.graph.alleles import enumerate_allele_paths
+    from ahsoka_tpu.pipeline import run_phase as jax_run_phase
+    from ahsoka_tpu.utils.accuracy import ploidy_map_from_truth
+    from ahsoka_tpu_torch.pipeline import load_graph_and_bubbles, run_phase
+
+    gfa, gaf = str(tmp_path / "m.gfa"), str(tmp_path / "m.gaf")
+    truth = str(tmp_path / "m.truth")
+    write_synthetic(gfa, gaf, SynthSpec(
+        chain_plan=[(10, 2), (8, 4), (6, 6)], span=3,
+        coverage_per_hap=8.0, error_rate=0.02, seed=6), truth_path=truth)
+    art = load_graph_and_bubbles(gfa, BENCH)
+    pmap = ploidy_map_from_truth(
+        enumerate_allele_paths(art.graph, art.index), truth)
+    assert sorted(pmap.values()) == [2, 4, 6]
+    cfg = dataclasses.replace(BENCH, ploidy_map=pmap, dp_beam_width=256,
+                              genotype_prior="balanced",
+                              banded_scoring_threshold=60)
+    jax_run_phase(gfa, gaf, str(tmp_path / "jax"), cfg)
+    with _count_banded() as calls:
+        art = run_phase(gfa, gaf, str(tmp_path / "torch"), cfg,
+                        device="cpu")
+    _same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert {c.ploidy for c in art.threading["configs"]} == {2, 4, 6}
+    assert 0 < len(calls) < 3
 
 
 def test_cli_profile_writes_trace(tmp_path):
