@@ -1,7 +1,7 @@
 """Command-line interface of the port.
 
-Same subcommands and flags as ``ahsoka-tpu`` (ahsoka_tpu/cli/main.py),
-plus ``--device``:
+Same subcommands and flags as the JAX package's ``ahsoka-tpu`` (its
+``cli/main.py``), plus ``--device``:
 
     ahsoka-tpu-torch phase -g <graph.gfa> -a <alignments.gaf> -o <outstem>
                            [--device cuda|cpu] [--ploidy K] ...
@@ -21,26 +21,94 @@ import dataclasses
 import sys
 from typing import List, Optional
 
-from ahsoka_tpu.cli.main import build_parser as _tpu_parser
-from ahsoka_tpu.config import PhasingConfig
+from ahsoka_tpu_torch.config import PhasingConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = _tpu_parser()
-    parser.prog = "ahsoka-tpu-torch"
-    parser.description = ("Haplotype assembly for diploid and polyploid "
-                          "genomes from assembly graphs (GFA) and "
-                          "long-read alignments (GAF), on PyTorch/CUDA")
-    sub = next(a for a in parser._actions
-               if isinstance(a, argparse._SubParsersAction))
-    phase = sub.choices["phase"]
-    for action in phase._actions:
-        if action.dest == "profile":
-            action.help = "write a torch.profiler trace into DIR"
+    parser = argparse.ArgumentParser(
+        prog="ahsoka-tpu-torch",
+        description=("Haplotype assembly for diploid and polyploid "
+                     "genomes from assembly graphs (GFA) and long-read "
+                     "alignments (GAF), on PyTorch/CUDA"))
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    phase = sub.add_parser("phase", help="full phasing pipeline")
+    phase.add_argument("-g", "--graph", required=True,
+                       help="genome assembly graph in GFA format")
+    phase.add_argument("-a", "--alignments", required=True,
+                       help="alignments of long reads to the graph, GAF")
+    phase.add_argument("-o", "--output", required=True,
+                       help="output stem for result files")
+    phase.add_argument("-s", "--strandseq", default="",
+                       help="additional long-range phasing information "
+                            "(accepted for parity; unused)")
+    phase.add_argument("-t", "--threads", type=int, default=1,
+                       help="host worker width")
+    phase.add_argument("--ploidy", type=int, default=2)
+    phase.add_argument("--ploidy-map", metavar="JSON", default=None,
+                       help="per-chain ploidy overrides for mixed-"
+                            "ploidy samples: a JSON file mapping engine "
+                            "chain ids to ploidy ({\"12\": 4, ...}); "
+                            "chains absent from the map use --ploidy")
+    phase.add_argument("--backend", choices=["jax", "host"], default="jax",
+                       help="compute backend for projection/scoring/DP")
+    phase.add_argument("--resume", action="store_true",
+                       help="skip chains whose result file already exists")
+    phase.add_argument("--keep-going", action="store_true",
+                       help="record per-chain failures and continue")
+    phase.add_argument("--profile", metavar="DIR", default=None,
+                       help="write a torch.profiler trace into DIR")
+    phase.add_argument("--no-genotypes", action="store_true",
+                       help="disable the genotype conformity cost")
+    phase.add_argument("--genotype-prior",
+                       choices=["reference", "balanced"],
+                       default="reference",
+                       help="'reference' = balanced biallelic "
+                            "((k+1)//2, k//2) like the reference's "
+                            "{0:1,1:1}; 'balanced' = per-position ML "
+                            "allocation over observed alleles "
+                            "(recommended for ploidy > 2)")
+    phase.add_argument("--max-coverage", type=int, default=None,
+                       help="cap per-position read coverage before "
+                            "scoring (bounds cost on deep data)")
+    phase.add_argument("--dp-beam-width", type=int, default=0,
+                       help="cap retained DP states per position "
+                            "(beam pruning, the WhatsHap rowLimit "
+                            "analog); required for ploidy 6 "
+                            "(e.g. 2048), 0 = exact DP")
+    phase.add_argument("--data-shards", type=int, default=1,
+                       help="shard alignments over this many mesh "
+                            "devices during projection")
+    phase.add_argument("--chain-shards", type=int, default=1,
+                       help="shard the batched threading DP's chain "
+                            "axis over this many mesh devices")
+    phase.add_argument("--coordinator", default=None,
+                       help="coordinator address (host:port) for "
+                            "multi-host runs")
+    phase.add_argument("--num-processes", type=int, default=None,
+                       help="total process count for multi-host runs")
+    phase.add_argument("--process-id", type=int, default=None,
+                       help="this process's rank for multi-host runs")
+    phase.add_argument("--process-sharding", choices=["mesh", "chains"],
+                       default="mesh",
+                       help="multi-host layout: 'mesh' runs device "
+                            "stages over the global mesh (collectives "
+                            "across hosts; giant-chain workloads); "
+                            "'chains' partitions chains across "
+                            "processes with process-local device calls "
+                            "and a rank-0 output merge (many-chain "
+                            "workloads)")
+
     phase.add_argument("--device", default="cuda",
                        help="torch device for projection, scoring and the "
                             "DP: cuda (default; raises without a card) or "
                             "cpu (plain PyTorch versions)")
+
+    only = sub.add_parser("only-bubbles",
+                          help="stop after writing the bubbleinfo file")
+    only.add_argument("-g", "--graph", required=True)
+    only.add_argument("-o", "--output", required=True)
+    only.add_argument("-t", "--threads", type=int, default=1)
     return parser
 
 

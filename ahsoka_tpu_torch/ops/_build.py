@@ -7,7 +7,9 @@ and rebuilt when its source is newer, so a fresh checkout needs nothing
 but the CUDA toolkit.  Sources never include PyTorch's headers: pointers
 and the CUDA stream cross the boundary as ``c_void_p`` from
 ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``,
-which keeps a build to seconds.
+which keeps a build to seconds.  Builds hold a file lock and replace the
+library atomically (``utils/native.build_locked``), so concurrent
+processes build each library once.
 
 ``--fmad=false`` keeps every float add and multiply a separately rounded
 IEEE operation, the way the plain PyTorch versions round them.
@@ -18,16 +20,14 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_REPO = os.path.dirname(_PKG)
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_REPO, "build", "ahsoka_tpu_torch")
+from ahsoka_tpu_torch.utils.native import REPO, build_locked
+
+CSRC = os.path.join(REPO, "ahsoka_tpu_torch", "csrc")
+BUILD_DIR = os.path.join(REPO, "build", "ahsoka_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -52,19 +52,6 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin)")
 
 
-def _build(name: str, src: str, lib: str, extra_flags=()) -> float:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)          # atomic: a concurrent build never
-    return time.perf_counter() - t0   # load a half-written library
-
-
 def load(name: str, extra_flags=()) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, building it first when it is missing
     or older than ``csrc/<name>.cu``.  Builds of different libraries may
@@ -76,10 +63,9 @@ def load(name: str, extra_flags=()) -> ctypes.CDLL:
             return _LIBS[name]
         src = os.path.join(CSRC, f"{name}.cu")
         lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
-        stale = (not os.path.exists(lib_path)
-                 or os.path.getmtime(lib_path) < os.path.getmtime(src))
-        build_seconds[name] = (_build(name, src, lib_path, extra_flags)
-                               if stale else 0.0)
+        build_seconds[name] = build_locked(
+            lib_path, [src], lambda out: [nvcc_path(), *NVCC_FLAGS,
+                                          *extra_flags, "-o", out, src])
         lib = ctypes.CDLL(lib_path)
         _LIBS[name] = lib
         return lib

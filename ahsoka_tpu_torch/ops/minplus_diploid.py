@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ahsoka_tpu.thread.states import full_state_counts
+from ahsoka_tpu_torch.thread.states import full_state_counts
 from ahsoka_tpu_torch.ops import _build
 from ahsoka_tpu_torch.ops.minplus import backtrace_ref, minplus_forward_ref
 

@@ -11,7 +11,7 @@ M = 2k candidate slots and S = C(3k-1, k) states:
     minplus_forward_streamed(candidates [C, P, M] int32,
                              node_costs [C, P, S] float32,
                              counts_table [S, M], *, ploidy, switch_cost,
-                             affine_cost)
+                             affine_cost, cluster=None)
         -> final_costs [C, S] float32, backptrs [C, P, S] int32 (bp[:, 0] = 0)
     backtrace_streamed(backptrs [C, P, S] int32, final_state [C] int32)
         -> states [C, P] int32
@@ -23,11 +23,17 @@ wrapper appends.  A CUDA tensor launches the hand-written kernel of
 takes the plain version (``ops/minplus.py``).  Nothing falls back from one
 to the other.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
+
+The host half of the CUDA forward lives here: the int8 0/1 plane table
+its tensor cores multiply (``ge_planes``) and the CTAs a chain spreads
+over (``choose_cluster``, ``cluster_size``; ``cluster`` pins it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,16 +44,26 @@ from ahsoka_tpu_torch.ops.minplus_diploid import (_check, _check_launch,
                                                   _route)
 
 _LIB = "minplus_stream"
-MAX_PLOIDY = 5                   # the build instantiates M = 2, 4, ..., 10
+MAX_PLOIDY = 5                   # the build instantiates k = 1..5
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs a chain may spread over
+MIN_CTA_CELLS = 4096             # (source, destination) cells a CTA keeps
+SMALL_PLOIDY = 2                 # k <= 2: one warp a chain, CUDA cores
+NUM_SMS = 132                    # H100 SXM; on the card its own count
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if not getattr(lib, "_ahsoka_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ahsoka_dpk_forward.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                           ci, cf, cf, vp]
+        lib.ahsoka_dpk_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, cf, cf, vp]
         lib.ahsoka_dpk_forward.restype = ci
+        lib.ahsoka_dpk_forward_dp4a.argtypes = [vp, vp, vp, vp, vp, ci, ci,
+                                                ci, ci, cf, cf, vp]
+        lib.ahsoka_dpk_forward_dp4a.restype = ci
+        lib.ahsoka_dpk_max_clusters.argtypes = [ci, ci, ci,
+                                                ctypes.POINTER(ci)]
+        lib.ahsoka_dpk_max_clusters.restype = ci
         lib.ahsoka_dpk_backtrace.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.ahsoka_dpk_backtrace.restype = ci
         lib.ahsoka_cuda_error_string.argtypes = [ci]
@@ -58,7 +74,7 @@ def _lib() -> ctypes.CDLL:
 
 def packed_counts(counts_table) -> np.ndarray:
     """[S, M] slot counts -> [S, ceil(M/4)] int32 words, four counts to a
-    word as little-endian bytes (the kernel's shared-memory table)."""
+    word as little-endian bytes (the kernel's table for building B)."""
     counts = np.asarray(counts_table)
     S, M = counts.shape
     if counts.min(initial=0) < 0 or counts.max(initial=0) > 255:
@@ -69,12 +85,101 @@ def packed_counts(counts_table) -> np.ndarray:
     return as_bytes.view("<i4")
 
 
+def plane_bytes(ploidy: int) -> int:
+    """Bytes a row of the int8 plane table holds: M*k (slot, threshold)
+    pairs padded to the mma depth of 32."""
+    return 32 if 2 * ploidy * ploidy <= 32 else 64
+
+
+def ge_planes(values, ploidy: int) -> np.ndarray:
+    """[N, M] slot values in 0..k -> [N, K] int8 0/1 planes with
+    ``ge_planes(a) @ ge_planes(b).T == sum_m min(a[:, m], b[:, m])``
+    exactly, since min(x, y) = sum_{u=1..k} [x >= u] [y >= u] for
+    0 <= x, y <= k.
+
+    Byte kk of a row is the plane of slot mp and threshold u where,
+    with i = kk // 16, q = kk % 16 // 4, b = kk % 4, sigma = 4i + b and
+    NB = ceil(M / 4): u = sigma // NB + 1 and mp = 4 * (sigma % NB) + q
+    (zero where u > k or mp >= M).  That is the order in which a lane of
+    mma.m16n8k32 holds its A and B bytes: the kernel's lane q builds the
+    bytes of slots q, q+4, q+8 and no others."""
+    vals = np.asarray(values)
+    if vals.ndim != 2 or vals.shape[1] != 2 * ploidy:
+        raise ValueError(f"values {vals.shape} need {2 * ploidy} slots")
+    if vals.size and (vals.min() < 0 or vals.max() > ploidy):
+        raise ValueError(f"slot values must lie in 0..{ploidy}")
+    M, K = 2 * ploidy, plane_bytes(ploidy)
+    nb = (M + 3) // 4
+    out = np.zeros((vals.shape[0], K), dtype=np.int8)
+    for kk in range(K):
+        sigma = 4 * (kk // 16) + kk % 4
+        u, mp = sigma // nb + 1, 4 * (sigma % nb) + kk % 16 // 4
+        if u <= ploidy and mp < M:
+            out[:, kk] = vals[:, mp] >= u
+    return out
+
+
+def choose_cluster(C: int, S: int, num_sms: int = NUM_SMS,
+                   max_active: Optional[Callable[[int], int]] = None) -> int:
+    """CTAs per chain: the largest G in CLUSTER_SIZES such that the C
+    clusters of G CTAs fill at most the card's ``num_sms`` SMs, all run at
+    once (``max_active(G)`` clusters fit on the card, by default
+    num_sms // G), and each CTA keeps at least MIN_CTA_CELLS (source,
+    destination) cells of a position: below that a position's fixed
+    latency (barriers, reductions, a few microseconds) outweighs what a
+    further split saves.  1 for many-chain groups."""
+    best = 1
+    for g in CLUSTER_SIZES[1:]:
+        if S * -(-S // g) < MIN_CTA_CELLS or C * g > num_sms:
+            break
+        if C <= (max_active(g) if max_active else num_sms // g):
+            best = g
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device_index: int, M: int, S: int, G: int) -> int:
+    lib = _lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.ahsoka_dpk_max_clusters(M, S, G, ctypes.byref(out))
+    _check_launch(lib, err, f"dpk_forward occupancy (G={G})")
+    return out.value
+
+
+def cluster_size(C: int, S: int, ploidy: int, device) -> int:
+    """The CTAs per chain the CUDA forward kernel runs with on ``device``
+    (1 at ploidy <= SMALL_PLOIDY, else ``choose_cluster`` with the card's
+    SM count and cluster occupancy)."""
+    if ploidy <= SMALL_PLOIDY:
+        return 1
+    dev = torch.device(device)
+    return choose_cluster(
+        C, S, torch.cuda.get_device_properties(dev).multi_processor_count,
+        lambda g: _max_clusters(dev.index or 0, 2 * ploidy, S, g))
+
+
+_TABLES: Dict[Tuple[str, int, bytes], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_tables(counts: np.ndarray, ploidy: int, dev: torch.device):
+    """(int8 planes [S, K], packed counts [S, W]) on ``dev``, uploaded
+    once per device and table."""
+    key = (str(dev), ploidy, counts.tobytes())
+    if key not in _TABLES:
+        _TABLES[key] = (torch.from_numpy(ge_planes(counts, ploidy)).to(dev),
+                        torch.from_numpy(packed_counts(counts)).to(dev))
+    return _TABLES[key]
+
+
 def minplus_forward_streamed(candidates: torch.Tensor,
                              node_costs: torch.Tensor, counts_table, *,
                              ploidy: int, switch_cost: float,
-                             affine_cost: float):
+                             affine_cost: float,
+                             cluster: Optional[int] = None):
     """General-ploidy min-plus forward pass over a chain batch (see the
-    module doc)."""
+    module doc).  ``cluster`` pins the CTAs per chain of the CUDA kernel
+    (one of CLUSTER_SIZES; default ``choose_cluster``)."""
     M = 2 * ploidy
     _check(candidates, "candidates", torch.int32, 3, M)
     _check(node_costs, "node_costs", torch.float32, 3)
@@ -94,6 +199,9 @@ def minplus_forward_streamed(candidates: torch.Tensor,
     if not 1 <= ploidy <= MAX_PLOIDY:
         raise ValueError(f"the CUDA kernel takes ploidy 1..{MAX_PLOIDY}, "
                          f"got {ploidy}")
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got "
+                         f"{cluster}")
     C, P, _ = candidates.shape
     dev = candidates.device
     if C == 0 or P == 0:
@@ -101,15 +209,19 @@ def minplus_forward_streamed(candidates: torch.Tensor,
                 torch.zeros((C, P, S), dtype=torch.int32, device=dev))
     lib = _lib()
     with torch.cuda.device(dev):
-        table = torch.from_numpy(packed_counts(counts)).to(dev)
+        planes, packed = _device_tables(counts, ploidy, dev)
+        if ploidy <= SMALL_PLOIDY and cluster not in (None, 1):
+            raise ValueError(f"ploidy {ploidy} runs one CTA a chain, got "
+                             f"cluster={cluster}")
+        G = cluster or cluster_size(C, S, ploidy, dev)
         bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
         fin = torch.empty((C, S), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ahsoka_dpk_forward(
-            candidates.data_ptr(), node_costs.data_ptr(), table.data_ptr(),
-            bp.data_ptr(), fin.data_ptr(), C, P, S, M, ploidy,
+            candidates.data_ptr(), node_costs.data_ptr(), planes.data_ptr(),
+            packed.data_ptr(), bp.data_ptr(), fin.data_ptr(), C, P, S, M, G,
             float(switch_cost), float(affine_cost), stream)
-        _check_launch(lib, err, "dpk_forward")
+        _check_launch(lib, err, f"dpk_forward (G={G})")
         minplus_forward_streamed.launches += 1
         return fin, bp
 

@@ -15,9 +15,9 @@ failed batched DP is retried chain by chain, and logged).
 
 Chains above ``banded_scoring_threshold`` effective reads take banded
 scoring (``score/banded.py``) and the native sparse cluster editing.
-The native helpers (cluster editing, coverage cap) are built and loaded
-once on the calling thread before the worker pool starts: their loaders
-build with g++ at first use, without a lock.
+The native helpers (cluster editing, coverage cap) are built (g++, at
+first use, under a file lock) and loaded once on the calling thread
+before the worker pool starts; a failed build raises.
 
 Not ported (raise ``NotImplementedError`` naming the ROADMAP item):
 data/chain sharding and multi-process chain sharding.
@@ -25,22 +25,82 @@ data/chain sharding and multi-process chain sharding.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from ahsoka_tpu.cluster.editing import cluster_editing
-from ahsoka_tpu.cluster.postprocess import consensus_lookup
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.emit.result import emit_chain_result
-from ahsoka_tpu.phase import (_COLLAPSE_UNSET, _PRE_PASS_MAX_BUBBLES,
-                              _PRE_PASS_SLICE, ChainPhasingResult,
-                              _chain_collapse, _write_readset_debug_files,
-                              chain_config)
-from ahsoka_tpu.utils import substage
-from ahsoka_tpu.utils.logging import get_logger
+from ahsoka_tpu_torch.cluster.editing import cluster_editing
+from ahsoka_tpu_torch.cluster.postprocess import consensus_lookup
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.emit.result import emit_chain_result
+from ahsoka_tpu_torch.project.readset import ChainReadsets
+from ahsoka_tpu_torch.utils import substage
+from ahsoka_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+
+@dataclasses.dataclass
+class ChainPhasingResult:
+    chain_id: int
+    num_bubbles: int
+    skipped: bool
+    reason: str = ""
+    num_reads: int = 0
+    num_clusters: int = 0
+    num_positions: int = 0
+    haplotype_alleles: Optional[List[List[int]]] = None
+    seconds: float = 0.0
+    dp_cells: int = 0
+    error: str = ""
+    resumed: bool = False
+    stage_seconds: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+
+def chain_config(config: PhasingConfig, chain_id: int) -> PhasingConfig:
+    """The effective config for one chain: config.ploidy_map overrides
+    the global ploidy per engine chain id (mixed-ploidy samples, BASELINE
+    config 5).  Returns ``config`` unchanged when no override applies."""
+    pm = getattr(config, "ploidy_map", None)
+    if not pm:
+        return config
+    k = int(pm.get(chain_id, config.ploidy))
+    if k == config.ploidy:
+        return config
+    return dataclasses.replace(config, ploidy=k, ploidy_map=None)
+
+
+def _chain_collapse(matrix, config):
+    """Identical-read collapsing decision for one chain: returns a
+    CollapsedReads when enabled, the chain is large enough, and rows
+    actually repeat (project/collapse.py), else None.  Both downstream
+    paths use it: groups fitting the dense threshold score as a
+    weighted [G, G] matrix; larger group sets go through banded scoring
+    over the distinct rows (multiplicity-weighted stats + m_u*m_v edge
+    weights)."""
+    if not config.ce_collapse_identical \
+            or matrix.num_reads < config.ce_collapse_min_reads:
+        return None
+    from ahsoka_tpu_torch.project.collapse import collapse_reads
+    cm = collapse_reads(matrix)
+    # redundancy gate (config.ce_collapse_max_ratio): collapse only
+    # where duplicate rows at least halve the instance — the regime
+    # where the contracted trace tracks the exact one; low-redundancy
+    # (noisy) chains run exact uncollapsed (the regime study's one
+    # contract violation lived at G/R = 0.53)
+    ratio = getattr(config, "ce_collapse_max_ratio", 0.5)
+    return cm if cm.num_groups <= ratio * matrix.num_reads else None
+
+
+_COLLAPSE_UNSET = object()
+
+# batched projection pre-pass limits (whole-genome memory discipline):
+# chains above the bubble cap run their own streaming per-chain path;
+# the rest batch in slices so only one slice's padded inputs are live
+_PRE_PASS_MAX_BUBBLES = 512
+_PRE_PASS_SLICE = 256
 
 
 def check_supported(config: PhasingConfig) -> None:
@@ -107,7 +167,7 @@ def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
                                      config)
         _write_readset_debug_files(outstem, chain_id, readsets)
     if config.max_coverage is not None:
-        from ahsoka_tpu.project.subsample import subsample_matrix
+        from ahsoka_tpu_torch.project.subsample import subsample_matrix
         before = matrix.num_reads
         with substage.timed("matrix.covcap"):
             matrix, _ = subsample_matrix(matrix, config.max_coverage)
@@ -125,8 +185,9 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     editing, plain or over collapsed identical rows).  ``scores``
     short-circuits the dense scoring when the batched pre-pass already
     computed it."""
-    from ahsoka_tpu.cluster.editing import assignment_from_clusters
-    from ahsoka_tpu.cluster.postprocess import build_dp_inputs_from_matrix
+    from ahsoka_tpu_torch.cluster.editing import assignment_from_clusters
+    from ahsoka_tpu_torch.cluster.postprocess import \
+        build_dp_inputs_from_matrix
     from ahsoka_tpu_torch.score.device import score_pairs_device
 
     marks = result.stage_seconds
@@ -140,12 +201,13 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
         # large chain: banded scoring -> sparse edges -> native sparse
         # solver; with a collapse the band runs over the distinct rows
         # and edges weigh m_u * m_v * s(u, v)
-        from ahsoka_tpu.cluster._native_ce import cluster_editing_sparse
+        from ahsoka_tpu_torch.cluster._native_ce import \
+            cluster_editing_sparse
         from ahsoka_tpu_torch.score.banded import score_pairs_banded
 
         t = time.perf_counter()
         if collapse is not None:
-            from ahsoka_tpu.project.collapse import expand_clusters
+            from ahsoka_tpu_torch.project.collapse import expand_clusters
             eu, ev, ew = score_pairs_banded(collapse.matrix, config,
                                             mult=collapse.mult,
                                             device=device)
@@ -161,16 +223,12 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
         with substage.timed("clustering.solver"):
             clusters = cluster_editing_sparse(n_nodes, eu, ev, ew,
                                               mode=config.ce_mode)
-        if clusters is None:
-            raise RuntimeError(
-                "sparse cluster editing unavailable for a chain above "
-                "the banded-scoring threshold (no C++ toolchain)")
         if collapse is not None:
             with substage.timed("clustering.expand"):
                 clusters = expand_clusters(clusters, collapse.inverse)
         marks["clustering"] = time.perf_counter() - t
     elif collapse is not None:
-        from ahsoka_tpu.project.collapse import expand_clusters
+        from ahsoka_tpu_torch.project.collapse import expand_clusters
         import numpy as np
 
         t = time.perf_counter()
@@ -209,19 +267,14 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
 
 def _load_native_helpers(config: PhasingConfig) -> None:
     """Build (g++, at first use) and load the native cluster editing and
-    coverage-cap libraries on this thread, before any worker starts.
-    Their loaders hold no lock: a worker that loads a half-written
-    library marks it failed for the rest of the process, after which
-    dense cluster editing runs its Python fallback and the sparse solver
-    that banded chains need is missing."""
-    from ahsoka_tpu.cluster._native_ce import native_ce_available
+    coverage-cap libraries on this thread, before any worker starts, so
+    a failed build raises here rather than inside a worker."""
+    from ahsoka_tpu_torch.cluster import _native_ce
+    from ahsoka_tpu_torch.project import _native_covcap
 
+    _native_ce._load()
     if config.max_coverage is not None:
-        from ahsoka_tpu.project._native_covcap import _load
-        _load()
-    if not native_ce_available():
-        log.warning("native cluster editing unavailable: dense chains "
-                    "take the Python solver, banded chains fail")
+        _native_covcap._load()
 
 
 def _dp_frontier_width(config: PhasingConfig, S: int) -> int:
@@ -286,8 +339,8 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
     pass 2 scores and clusters, pass 3 threads all chains batched and
     emits in size-sorted order.  ``device`` is the torch device of the
     projection, scoring and DP stages."""
-    from ahsoka_tpu.thread.dp_host import assign_rows
-    from ahsoka_tpu.thread.states import max_states
+    from ahsoka_tpu_torch.thread.dp_host import assign_rows
+    from ahsoka_tpu_torch.thread.states import max_states
     from ahsoka_tpu_torch.score.device import score_pairs_device_many
     from ahsoka_tpu_torch.thread.dp_torch import (thread_chain_device,
                                                   thread_chains_batched)
@@ -520,3 +573,20 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                                 + dp_seconds / max(len(dps), 1))
             results.append(res)
     return results
+
+
+def _write_readset_debug_files(outstem: str, chain_id: int,
+                               readsets: ChainReadsets) -> None:
+    """The reference's per-chain readset dumps
+    (src/alignmentstoreadset.cpp:284-304); our debug format."""
+    with open(f"{outstem}-chain{chain_id}-readset.txt", "w") as fh:
+        fh.write(f"readsets for chain {chain_id}: {len(readsets.full)}\n")
+        fh.write(readsets.full.to_debug_string() + "\n")
+        fh.write(f"testset size: {len(readsets.full_filtered)}\n")
+        fh.write(readsets.full_filtered.to_debug_string() + "\n")
+        fh.write(f"partial testset size: "
+                 f"{len(readsets.partial_filtered)}\n")
+        fh.write(readsets.partial_filtered.to_debug_string() + "\n")
+    with open(f"{outstem}-chain{chain_id}-readset_final.txt", "w") as fh:
+        fh.write(f"readset size: {len(readsets.partial_filtered)}\n")
+        fh.write(readsets.partial_filtered.to_debug_string() + "\n")

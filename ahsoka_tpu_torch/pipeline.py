@@ -5,29 +5,188 @@
               -> result files + -metrics.json
 
 Parsing, bubbles, allele paths and the bubbleinfo/identities side files
-are the JAX package's host stages, shared by import (they never touch
-jax).  Phasing runs ``ahsoka_tpu_torch.phase.phase_all_chains_batched``
+are host stages (this package's copies of the JAX package's, byte-equal
+in output).  Phasing runs ``ahsoka_tpu_torch.phase.phase_all_chains_batched``
 on a torch device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.pipeline import (PipelineArtifacts, load_graph_and_bubbles,
-                                 prepare_phase_inputs, run_only_bubbles)
-from ahsoka_tpu.utils.logging import get_logger
+from ahsoka_tpu_torch.config import PhasingConfig
 from ahsoka_tpu_torch.device import resolve_device
+from ahsoka_tpu_torch.emit.bubbleinfo import write_bubbleinfo_file
+from ahsoka_tpu_torch.graph.alleles import (AllelePathTable,
+                                            enumerate_allele_paths)
+from ahsoka_tpu_torch.graph.bubbles import find_bubbles
+from ahsoka_tpu_torch.graph.structures import BubbleIndex
+from ahsoka_tpu_torch.io.gaf import (AlignmentTable, identities_sidefile_path,
+                                     read_gaf)
+from ahsoka_tpu_torch.io.gfa import GfaGraph, parse_gfa
+from ahsoka_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-__all__ = ["PipelineArtifacts", "load_graph_and_bubbles",
-           "prepare_phase_inputs", "run_only_bubbles", "run_phase"]
+
+@dataclasses.dataclass
+class PipelineArtifacts:
+    graph: GfaGraph
+    index: BubbleIndex
+    alignments: Optional[AlignmentTable] = None
+    allele_paths: Optional[AllelePathTable] = None
+    size_sorting: Optional[List[Tuple[int, int]]] = None
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # columnar alignment tables (the device pipeline's fast path; object
+    # tables above remain the oracle, and the input of debug readset files)
+    gaf_columns: Optional[object] = None
+    chain_buckets: Optional[Dict[int, object]] = None
+
+    def chain_alignment_count(self, chain_id: int) -> int:
+        if self.chain_buckets is not None:
+            b = self.chain_buckets.get(chain_id)
+            return 0 if b is None else len(b.record_idx)
+        return len(self.alignments.chain_alignments(chain_id))
+
+
+def load_graph_and_bubbles(gfa_path: str, config: PhasingConfig,
+                           artifacts: Optional[PipelineArtifacts] = None
+                           ) -> PipelineArtifacts:
+    t0 = time.perf_counter()
+    graph = parse_gfa(gfa_path)
+    t1 = time.perf_counter()
+    log.info("Step 1: Graph with %d nodes read", graph.num_nodes())
+    index = find_bubbles(graph,
+                         compat_std_ordering=config.compat_std_ordering)
+    t2 = time.perf_counter()
+    log.info("Step 2: Bubbles read; number of bubble chains: %d",
+             len(index.chains))
+    art = PipelineArtifacts(graph=graph, index=index)
+    art.stage_seconds["parse_gfa"] = t1 - t0
+    art.stage_seconds["find_bubbles"] = t2 - t1
+    return art
+
+
+def run_only_bubbles(gfa_path: str, outstem: str,
+                     config: PhasingConfig = PhasingConfig()) -> str:
+    """The ``only-bubbles`` subcommand (src/polyassembly.cpp:112-114)."""
+    art = load_graph_and_bubbles(gfa_path, config)
+    return write_bubbleinfo_file(art.index, outstem)
+
+
+def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
+                         config: PhasingConfig,
+                         columnar: bool = False) -> PipelineArtifacts:
+    """Stages 1-4: graph, bubbles, alignments, allele paths, chain order.
+
+    ``columnar=True`` parses the GAF into flat column arrays (native
+    parser) and buckets by chain with vectorised numpy — no per-record
+    objects; run_phase uses it unless readset debug files are asked for."""
+    art = load_graph_and_bubbles(gfa_path, config)
+    write_bubbleinfo_file(art.index, outstem)
+
+    t0 = time.perf_counter()
+    if columnar:
+        from ahsoka_tpu_torch.io._native_io import parse_gaf_native
+        from ahsoka_tpu_torch.io.columns import (bucket_by_chain,
+                                           columns_from_native)
+
+        raw = parse_gaf_native(gaf_path)
+        cols = columns_from_native(raw) if raw is not None else None
+        if cols is not None:
+            art.gaf_columns = cols
+            art.chain_buckets = bucket_by_chain(
+                cols, art.index,
+                compat_duplicate_bucketing=
+                config.compat_duplicate_bucketing)
+            art.alignments = AlignmentTable(num_records=cols.num_records)
+            # identities side file from the same raw native arrays
+            _write_identities_from_native(gaf_path, raw=raw)
+        else:
+            log.warning("native GAF parser unavailable; falling back to "
+                        "the object parser")
+            columnar = False
+    if not columnar:
+        with open(identities_sidefile_path(gaf_path), "w") as idf:
+            art.alignments = read_gaf(
+                gaf_path, art.index, identities_out=idf,
+                compat_duplicate_bucketing=
+                config.compat_duplicate_bucketing)
+    t1 = time.perf_counter()
+    n_buckets = (sum(len(b.record_idx)
+                     for b in art.chain_buckets.values())
+                 if art.chain_buckets is not None else
+                 sum(len(v) for v in art.alignments.by_chain.values()))
+    log.info("Step 3: Alignments read; number of alignment buckets: %d",
+             n_buckets)
+
+    art.allele_paths = enumerate_allele_paths(art.graph, art.index)
+    t2 = time.perf_counter()
+    log.info("Step 4: Chain paths computed; number of chain paths: %d",
+             len(art.allele_paths))
+
+    # process largest chains first; ties broken by larger chain id — the
+    # deterministic order produced by sorting (size, chain_id) pairs
+    # descending (src/polyassembly.cpp:136-140)
+    art.size_sorting = sorted(
+        ((len(bubbles), chain_id)
+         for chain_id, bubbles in art.allele_paths.items()),
+        reverse=True)
+    art.stage_seconds["parse_gaf"] = t1 - t0
+    art.stage_seconds["allele_paths"] = t2 - t1
+    return art
+
+
+def _write_identities_from_native(gaf_path: str, raw=None) -> None:
+    """Identities side file (src/alignmentreader.cpp:73-75,151-156) from
+    the native parser's flat arrays.  Vectorised: segment names are
+    comma-joined once in a single numpy pass (the naive per-record loop
+    cost ~40s on a 1M-record GAF), then each line is cheap byte slicing.
+    """
+    import numpy as np
+
+    from ahsoka_tpu_torch.io._native_io import parse_gaf_native
+
+    cols = raw if raw is not None else parse_gaf_native(gaf_path)
+    if cols is None:
+        return
+    nb, no = bytes(cols["name_bytes"]), cols["name_offsets"]
+    sb, so = cols["seg_bytes"], np.asarray(cols["seg_offsets"],
+                                           dtype=np.int64)
+    bb, bo = bytes(cols["blocklen_bytes"]), cols["blocklen_offsets"]
+    po = cols["path_offsets"]
+    idents = cols["identities"]
+    n_segs = len(so) - 1
+    # one pass: seg blob with a ',' appended after every segment, so a
+    # record's "s1,s2,...," field is a single slice
+    joined = np.empty(len(sb) + n_segs, dtype=np.uint8)
+    new_off = so + np.arange(len(so), dtype=np.int64)  # +1 comma per seg
+    comma_pos = new_off[1:] - 1
+    mask = np.ones(len(joined), dtype=bool)
+    mask[comma_pos] = False
+    joined[mask] = np.frombuffer(sb, dtype=np.uint8)
+    joined[comma_pos] = ord(",")
+    joined_b = joined.tobytes()
+    ident_str = np.char.mod("%g", np.asarray(idents))
+    with open(identities_sidefile_path(gaf_path), "wb") as fh:
+        write = fh.write
+        for r in range(cols["num_records"]):
+            write(nb[no[r]:no[r + 1]])
+            write(b"\t")
+            write(ident_str[r].encode())
+            write(b"\t")
+            # slice spans segments po[r]..po[r+1], trailing comma included
+            # (reference field format)
+            write(joined_b[new_off[po[r]]:new_off[po[r + 1]]])
+            write(b"\t")
+            write(bb[bo[r]:bo[r + 1]])
+            write(b"\n")
+
 
 
 def run_phase(gfa_path: str, gaf_path: str, outstem: str,
@@ -38,7 +197,7 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
     """The full ``phase`` subcommand on ``device`` (default ``cuda``;
     raises when no card is available).  ``profile_dir`` writes a
     torch.profiler trace of the phasing stage (Chrome trace JSON)."""
-    from ahsoka_tpu.utils.malloc_tune import retain_freed_heap
+    from ahsoka_tpu_torch.utils.malloc_tune import retain_freed_heap
     from ahsoka_tpu_torch.phase import (check_supported,
                                         phase_all_chains_batched)
 
@@ -47,7 +206,7 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
     if config.backend != "jax":
         raise NotImplementedError(
             f"backend={config.backend!r}: the port runs the device "
-            "pipeline only; the host oracle is ahsoka_tpu's "
+            "pipeline only; the host oracle is the JAX package's "
             "backend='host'")
     if not config.batch_dp:
         raise NotImplementedError(

@@ -35,9 +35,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.io.gaf import Alignment
-from ahsoka_tpu.project.readset import (ChainReadsets, Read, ReadSet,
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.io.gaf import Alignment
+from ahsoka_tpu_torch.project.readset import (ChainReadsets, Read, ReadSet,
                                         _filter, partial_inner,
                                         partial_position_sweep)
 from ahsoka_tpu_torch.state import to_torch
@@ -448,7 +448,7 @@ def assemble_readsets(inputs: ChainDeviceInputs,
     if N:
         # read creation order: first (bubble stdmap-rank, allele, al) match
         if config.compat_std_ordering:
-            from ahsoka_tpu.compat import native_iteration_order
+            from ahsoka_tpu_torch.compat import native_iteration_order
             order = native_iteration_order([int(b) for b in bubble_ids])
             rank_of = {b: r for r, b in enumerate(order)}
             ranks = np.asarray([rank_of[int(b)] for b in bubble_ids],
@@ -608,7 +608,7 @@ def _compact(keys: torch.Tensor, extents, row_offset: int = 0):
     SparseKeys cropped to that chain's (bubbles, names) extent.  The
     tables stay on the device; only the matched entries (``torch.nonzero``,
     row-major) cross to the host."""
-    from ahsoka_tpu.utils import substage
+    from ahsoka_tpu_torch.utils import substage
 
     C = keys.shape[0]
     with substage.timed("projection.fetch"):
@@ -647,7 +647,7 @@ def containment_key_tables(inputs: ChainDeviceInputs, config: PhasingConfig,
     ``containment_keys_core`` at a batch of one.  Chains whose key tables
     exceed _KEY_TABLE_BUDGET run in exact bubble blocks over one upload
     of the path tables."""
-    from ahsoka_tpu.utils import substage
+    from ahsoka_tpu_torch.utils import substage
 
     dev = torch.device(device)
     with substage.timed("projection.pack"):
@@ -695,7 +695,7 @@ def containment_key_tables_many(inputs_list: Sequence[ChainDeviceInputs],
     ``containment_keys_core`` over a written-out batch axis (split by a
     device working-set budget).  Same tables as per-chain
     ``containment_key_tables``."""
-    from ahsoka_tpu.utils import substage
+    from ahsoka_tpu_torch.utils import substage
 
     dev = torch.device(device)
     gate = float(np.float32(config.partial_identity_gate))
@@ -741,7 +741,7 @@ def build_chain_readsets_device(bubble_paths: Dict[int, List[List[int]]],
                                 device="cuda") -> ChainReadsets:
     inputs = prepare_chain_inputs(bubble_paths, alignments)
     if inputs.num_alignments == 0 or inputs.num_paths == 0:
-        from ahsoka_tpu.project.readset import build_chain_readsets
+        from ahsoka_tpu_torch.project.readset import build_chain_readsets
         return build_chain_readsets(bubble_paths, alignments, config)
     full_keys, part_keys, gate_keys = containment_key_tables(
         inputs, config, device=device)

@@ -29,9 +29,9 @@ from typing import List
 
 import numpy as np
 
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.score.pairwise import AlleleMatrix
-from ahsoka_tpu.utils.arrays import filled
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.score.pairwise import AlleleMatrix
+from ahsoka_tpu_torch.utils.arrays import filled
 from ahsoka_tpu_torch.project.device import (NO_MATCH, ChainDeviceInputs,
                                              SparseKeys, _decode,
                                              table_coo)
@@ -90,7 +90,7 @@ def chain_matrix_from_keys(inputs: ChainDeviceInputs,
     # (0.01% at BASELINE config-2 scale, where the dense formulation
     # cost minutes of [10k, 50k] passes).  Semantics identical to the
     # dense expression (parity: test_matrix_path.py).
-    from ahsoka_tpu.utils import substage
+    from ahsoka_tpu_torch.utils import substage
     with substage.timed("matrix.assemble.coo"):
         pr, pc, pv = table_coo(pk)         # row-major: r ascending per c
         gr, gc, gv = table_coo(gk)
@@ -192,7 +192,7 @@ def partial_sweep_from_stats(inputs: ChainDeviceInputs,
 
     # mapq via the stdmap-ranked first match (see device.assemble_readsets)
     if config.compat_std_ordering:
-        from ahsoka_tpu.compat import native_iteration_order
+        from ahsoka_tpu_torch.compat import native_iteration_order
         order = native_iteration_order([int(b) for b in inputs.bubble_ids])
         rank_of = {b: r for r, b in enumerate(order)}
         ranks = np.asarray([rank_of[int(b)] for b in inputs.bubble_ids],

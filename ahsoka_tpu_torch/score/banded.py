@@ -33,11 +33,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.score.pairwise import (_EPS_CLIP, AlleleMatrix,
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.score.pairwise import (_EPS_CLIP, AlleleMatrix,
                                        estimate_error_rate, position_weights)
-from ahsoka_tpu.utils import substage
-from ahsoka_tpu.utils.logging import get_logger
+from ahsoka_tpu_torch.utils import substage
+from ahsoka_tpu_torch.utils.logging import get_logger
 from ahsoka_tpu_torch.device import set_true_fp32
 from ahsoka_tpu_torch.score.device import _bmm_t
 from ahsoka_tpu_torch.state import to_torch
@@ -127,7 +127,7 @@ def score_pairs_banded(matrix: AlleleMatrix, config: PhasingConfig,
     whatshap = config.score_mode == "whatshap"
     with substage.timed("scoring.host_stats"):
         if whatshap:
-            from ahsoka_tpu.score.whatshap import chain_p_s, position_pd
+            from ahsoka_tpu_torch.score.whatshap import chain_p_s, position_pd
             # p_s pairs rows quadratically: estimate it on a row sample;
             # pd is linear in R and uses the full matrix
             sm, smult = _row_sample(matrix, mult=mult)

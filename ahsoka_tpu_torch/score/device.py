@@ -19,10 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.score.pairwise import (_EPS_CLIP, AlleleMatrix,
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.score.pairwise import (_EPS_CLIP, AlleleMatrix,
                                        estimate_error_rate)
-from ahsoka_tpu.utils import substage
+from ahsoka_tpu_torch.utils import substage
 from ahsoka_tpu_torch.device import set_true_fp32
 from ahsoka_tpu_torch.state import to_torch
 
@@ -155,7 +155,7 @@ def _chain_scalar(matrix: AlleleMatrix, config: PhasingConfig,
     """The per-chain scalar the active mode takes: eps for "fresh", the
     estimated p_s for "whatshap" (both host-estimated, numpy)."""
     if config.score_mode == "whatshap":
-        from ahsoka_tpu.score.whatshap import chain_p_s
+        from ahsoka_tpu_torch.score.whatshap import chain_p_s
         return chain_p_s(matrix, config, error_rate, mult=mult)
     if mult is not None and error_rate is None \
             and config.estimate_error_rate:

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from ahsoka_tpu.thread.states import full_state_counts, full_state_validity
+from ahsoka_tpu_torch.thread.states import full_state_counts, full_state_validity
 from ahsoka_tpu_torch.ops.minplus import backtrace_ref
 from ahsoka_tpu_torch.thread.dp_torch import node_costs_all
 

@@ -22,11 +22,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ahsoka_tpu.cluster.postprocess import DPInputs
-from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.thread.states import (full_state_counts,
+from ahsoka_tpu_torch.cluster.postprocess import DPInputs
+from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.thread.states import (full_state_counts,
                                       full_state_validity, state_tuples)
-from ahsoka_tpu.utils import substage
+from ahsoka_tpu_torch.utils import substage
 from ahsoka_tpu_torch.ops.minplus import _INF
 from ahsoka_tpu_torch.state import to_torch
 

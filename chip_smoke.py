@@ -5,7 +5,8 @@
     python3 chip_smoke.py --phases env,kernels     # build + kernel checks only
     python3 chip_smoke.py --phases env,config5s    # one end-to-end run
 
-Runs from the repository root with no install and no jax:
+Runs from the repository root with no install, no jax and nothing of the
+JAX package (``ahsoka_tpu``):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit,
    the TF32 settings, and the builds of the CUDA kernels from
@@ -18,9 +19,14 @@ Runs from the repository root with no install and no jax:
      an all-ties case;
    - the general-ploidy kernels at config3c's DP shape (k=4, C=20,
      P=256), k=1 (C=1000, P=56), k=3 (C=37, P=56), k=5 (C=4, P=64,
-     2002 states), one long tetraploid chain (C=1, P=2048) and an all-ties
-     k=4 batch; and the general forward equal to the diploid one at k=2
-     (C=1000, P=56);
+     2002 states, 16 CTAs a chain), one chain at each ploidy (k=1-3 at
+     P=300, a long tetraploid chain at C=1, P=2048, k=5 at P=64) and
+     all-ties k=4 and k=5 batches spread over clusters; the general
+     forward at every cluster size (1-16 CTAs a chain) at k=3, 4 and 5;
+     its tensor-core intersection against the same kernel with the
+     intersection on the CUDA cores (dp4a) at config3c's shape and the
+     P=2048 chain; and the general forward equal to the diploid one at
+     k=2, timed beside it (C=1000, P=56 and C=1, P=10,000);
 3. the golden diploid fixture through the port's ``run_only_bubbles`` and
    ``run_phase``, and the golden tetraploid one through the port's CLI
    (``--ploidy 4 --no-genotypes``), on the card, byte-equal to
@@ -59,15 +65,20 @@ Runs from the repository root with no install and no jax:
 
 Each end-to-end run sets the kernels' launch counts, and the counts of
 beam groups and banded chains run on the card, to 0 just before it and
-reads them just after.  Any failure raises and exits non-zero.  The last
+reads them just after, then re-threads its DP inputs once more on the
+card under torch.profiler for the DP kernels' device time.  After the
+golden runs, after config5s and at the end no jax and no ahsoka_tpu
+module may be loaded.  Any failure raises and exits non-zero.  The last
 line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 before it stand the card's ``nvidia-smi`` name/power-limit line, a
 ``{"kernels": [...]}`` line with each kernel's launches in its end-to-end
 run (config4s for the diploid kernels, config3c for the general ones), its
-error against the plain version and both times (at config4's and
-config3c's DP shapes), and the ``{"beam": ...}``, ``{"banded": ...}``
-and ``{"config5s": ...}`` lines with the times and counts of phases 6-8.
+error against the plain version, both times (at config4's and config3c's
+DP shapes), its roofline bound (``bound``) and ``library_ms`` null, and
+the ``{"beam": ...}``, ``{"banded": ...}``, ``{"config5s": ...}`` and
+``{"dpk_forward_clusters": ...}`` lines with the times and counts of
+phases 2 and 6-8.
 """
 
 from __future__ import annotations
@@ -109,6 +120,12 @@ KERNEL_META = {
 }
 
 
+# (ploidy, chains, positions) of the kernel-phase cases the JSON line reads
+CASE_SHAPES = {"config4": (2, 1000, 56), "config3c": (4, 20, 256)}
+NO_LIBRARY_CALL = ("no PyTorch call computes a min-plus scan with "
+                   "first-argmin backpointers, or follows backpointers")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -118,6 +135,17 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def no_reference_modules(after: str) -> None:
+    """Raise when jax or any ahsoka_tpu module has been imported."""
+    from ahsoka_tpu_torch.host import loaded_reference_modules
+
+    loaded = loaded_reference_modules(sys.modules)
+    if loaded:
+        raise AssertionError(f"after {after}: jax or the JAX package was "
+                             f"imported: {loaded[:5]}")
+    log(f"after {after}: no jax and no ahsoka_tpu module loaded")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -183,9 +211,9 @@ def all_ties(arrays):
 def _node_costs(arrays, dev, ploidy: int = 2, ties: bool = False):
     import torch
 
-    from ahsoka_tpu.thread.states import (full_state_counts,
-                                          full_state_validity)
     from ahsoka_tpu_torch.state import to_torch
+    from ahsoka_tpu_torch.thread.states import (full_state_counts,
+                                                full_state_validity)
     from ahsoka_tpu_torch.thread.dp_torch import node_costs_all
 
     cand, nc, cov, cons, geno = to_torch(*arrays, device=dev)
@@ -216,6 +244,36 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+# roofline of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, fp32
+# operations/s on the CUDA cores, int8 operations/s on the tensor cores
+HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+
+
+def bound(kernel: str, k: int, C: int, P: int):
+    """(least ms the card could take, "bytes" or "operations") for one
+    call of ``kernel`` at ploidy k on C chains of P positions.  Bytes: each
+    input read once, each output written once; a backtrace reads only the
+    P - 1 backpointers its path follows.  Operations: an fp32 add and
+    compare per (source, destination) cell, plus the M * k 0/1 products
+    of its intersection at the int8 tensor-core rate."""
+    from math import comb
+
+    M, S = 2 * k, comb(3 * k - 1, k)
+    if kernel.endswith("backtrace"):
+        nbytes, op_s = 4 * C * (2 * P), 0.0
+    else:
+        nbytes = 4 * C * P * (M + 2 * S) + 4 * C * S + S * M
+        cells = C * max(P - 1, 0) * S * S
+        op_s = 2 * cells / FP32_OPS_S + 2 * cells * M * k / INT8_OPS_S
+    byte_s = nbytes / HBM_BYTES_S
+    return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s
+                                     else "operations")
+
+
+def _seed(k: int, C: int, P: int) -> int:
+    return abs(C * 7919 + P + (k - 2) * 104729)
+
+
 def _kernel_pair_case(pair, case, dev, err) -> dict:
     """One shape: forward + backtrace kernels against their plain
     versions on the same card tensors, exactly; CUDA-event medians of
@@ -226,8 +284,7 @@ def _kernel_pair_case(pair, case, dev, err) -> dict:
     fname, fwd, fwd_ref, bname, bt, bt_ref = pair
     name, k, C, P, reps, plain_reps = case
     ties = name.startswith("all_ties")
-    arrays = random_dp_batch(C, P, seed=C * 7919 + P + (k - 2) * 104729,
-                             ploidy=k)
+    arrays = random_dp_batch(C, P, seed=_seed(k, C, P), ploidy=k)
     if ties:
         all_ties(arrays)
     cand, node = _node_costs(arrays, dev, k, ties)
@@ -263,20 +320,23 @@ def _kernel_pair_case(pair, case, dev, err) -> dict:
          bname: (_median_ms(lambda: bt(bp_k, fs), reps),
                  _median_ms(lambda: bt_ref(bp_k, fs), plain_reps))}
     log(f"kernel parity {name} k={k} C={C} P={P}: exact; "
-        + "; ".join(f"{n} {v[0]:.4f} ms vs plain {v[1]:.3f} ms"
+        + "; ".join(f"{n} {v[0]:.4f} ms vs plain {v[1]:.3f} ms "
+                    f"(bound {bound(n, k, C, P)[0]:.3g} ms)"
                     for n, v in t.items()))
     return t
 
 
 def phase_kernels(dev) -> dict:
     """Kernel vs plain on the card, exact equality at every shape."""
+    from math import comb
+
     import torch
 
-    from ahsoka_tpu.thread.states import full_state_counts
     from ahsoka_tpu_torch.ops import minplus_diploid as md
     from ahsoka_tpu_torch.ops import minplus_stream as ms
     from ahsoka_tpu_torch.ops.minplus import (backtrace_ref,
                                               minplus_forward_ref)
+    from ahsoka_tpu_torch.thread.states import full_state_counts
 
     kw = dict(switch_cost=SWITCH, affine_cost=AFFINE)
     diploid = ("dp2_forward",
@@ -285,11 +345,11 @@ def phase_kernels(dev) -> dict:
                "dp2_backtrace", md.backtrace_diploid,
                md.backtrace_diploid_ref)
 
-    def general(k):
+    def general(k, cluster=None):
         counts = full_state_counts(k)
         return ("dpk_forward",
                 lambda c, n: ms.minplus_forward_streamed(
-                    c, n, counts, ploidy=k, **kw),
+                    c, n, counts, ploidy=k, cluster=cluster, **kw),
                 lambda c, n: minplus_forward_ref(
                     c, n, counts, ploidy=k, **kw),
                 "dpk_backtrace", ms.backtrace_streamed, backtrace_ref)
@@ -300,32 +360,71 @@ def phase_kernels(dev) -> dict:
                      ("ragged37", 2, 37, 56, 5, 5),
                      ("config2_chain", 2, 1, 10000, 3, 1),
                      ("all_ties", 2, 300, 24, 5, 5)]
+    # config3c's group, many chains at k=1 and 3, one chain at each
+    # ploidy (k=4: tetra_long), k=5 across the largest cluster (k5,
+    # k5_c1) and all-ties batches spread over clusters (G = 4 and 16)
     general_cases = [("config3c", 4, 20, 256, 10, 3),
                      ("k1", 1, 1000, 56, 10, 5),
                      ("k3", 3, 37, 56, 10, 5),
-                     ("k5", 5, 4, 64, 3, 1),
-                     ("tetra_long", 4, 1, 2048, 3, 1),
-                     ("all_ties_k4", 4, 20, 24, 5, 3)]
-    timing, err = {}, {}
+                     ("k5", 5, 4, 64, 5, 1),
+                     ("tetra_long", 4, 1, 2048, 5, 1),
+                     ("all_ties_k4", 4, 20, 24, 5, 3),
+                     ("k1_c1", 1, 1, 300, 10, 1),
+                     ("k2_c1", 2, 1, 300, 10, 1),
+                     ("k3_c1", 3, 1, 300, 10, 1),
+                     ("k5_c1", 5, 1, 64, 5, 1),
+                     ("all_ties_k5", 5, 2, 20, 5, 1)]
+    timing, err, clusters = {}, {}, {}
     for case in diploid_cases:
         timing[case[0]] = _kernel_pair_case(diploid, case, dev, err)
     for case in general_cases:
-        timing[case[0]] = _kernel_pair_case(general(case[1]), case, dev,
-                                            err)
+        name, k, C, P = case[:4]
+        clusters[name] = ms.cluster_size(C, comb(3 * k - 1, k), k, dev)
+        log(f"{name}: dpk_forward runs {clusters[name]} CTA(s) a chain")
+        timing[name] = _kernel_pair_case(general(k), case, dev, err)
 
-    # at ploidy 2 the general forward equals the diploid one bit for bit
-    arrays = random_dp_batch(1000, 56, seed=1000 * 7919 + 56)
-    cand, node = _node_costs(arrays, dev)
-    fin_d, bp_d = diploid[1](cand, node)
-    fin_g, bp_g = general(2)[1](cand, node)
-    torch.cuda.synchronize()
-    if not (torch.equal(fin_d, fin_g) and torch.equal(bp_d, bp_g)):
-        raise AssertionError("dpk_forward != dp2_forward at k=2 "
-                             "(C=1000, P=56)")
-    t_d = _median_ms(lambda: diploid[1](cand, node), 20)
-    t_g = _median_ms(lambda: general(2)[1](cand, node), 20)
-    log(f"dpk_forward == dp2_forward at k=2 C=1000 P=56: exact; "
-        f"dpk {t_g:.4f} ms vs dp2 {t_d:.4f} ms")
+    # every cluster size at k = 3, 4, 5, exactly
+    for k, P in ((3, 40), (4, 40), (5, 12)):
+        arrays = random_dp_batch(2, P, seed=_seed(k, 2, P), ploidy=k)
+        cand, node = _node_costs(arrays, dev, k)
+        fin_r, bp_r = general(k)[2](cand, node)
+        for g in ms.CLUSTER_SIZES:
+            fin_g, bp_g = general(k, cluster=g)[1](cand, node)
+            torch.cuda.synchronize()
+            if not (torch.equal(fin_g, fin_r) and torch.equal(bp_g, bp_r)):
+                raise AssertionError(f"dpk_forward != plain at k={k} with "
+                                     f"{g} CTAs a chain")
+    log(f"dpk_forward at k=3, 4, 5 with {ms.CLUSTER_SIZES} CTAs a chain: "
+        "exact")
+
+    # the tensor-core intersection against the same kernel with the
+    # intersection on the CUDA cores (dp4a over byte-packed counts), k=4
+    intersect = {}
+    for name, C, P in (("config3c", 20, 256), ("tetra_long", 1, 2048)):
+        intersect[name] = _intersection_routes(dev, C, P, general(4))
+        log(f"k=4 C={C} P={P} ({name}) intersection: both routes exact; "
+            f"tensor cores {intersect[name]['mma_ms']:.4f} ms, CUDA cores "
+            f"(dp4a) {intersect[name]['dp4a_ms']:.4f} ms, "
+            f"{intersect[name]['cluster']} CTAs a chain")
+
+    # at ploidy 2 the general forward equals the diploid one bit for bit;
+    # their times side by side (config4's group and a config2 chain)
+    k2 = {}
+    for C, P in ((1000, 56), (1, 10000)):
+        arrays = random_dp_batch(C, P, seed=C * 7919 + P)
+        cand, node = _node_costs(arrays, dev)
+        fin_d, bp_d = diploid[1](cand, node)
+        fin_g, bp_g = general(2)[1](cand, node)
+        torch.cuda.synchronize()
+        if not (torch.equal(fin_d, fin_g) and torch.equal(bp_d, bp_g)):
+            raise AssertionError(f"dpk_forward != dp2_forward at k=2 "
+                                 f"(C={C}, P={P})")
+        reps = 20 if P < 1000 else 5
+        t_d = _median_ms(lambda: diploid[1](cand, node), reps)
+        t_g = _median_ms(lambda: general(2)[1](cand, node), reps)
+        k2[f"C={C},P={P}"] = {"dpk_forward_ms": t_g, "dp2_forward_ms": t_d}
+        log(f"dpk_forward == dp2_forward at k=2 C={C} P={P}: exact; "
+            f"dpk {t_g:.4f} ms vs dp2 {t_d:.4f} ms")
 
     # int32 scatter-amin on the card (projection's scatter-min by name)
     idx = torch.tensor([0, 2, 0, 1, 2, 2], device=dev)
@@ -335,7 +434,50 @@ def phase_kernels(dev) -> dict:
     if out.cpu().tolist() != [3, 9, 2]:
         raise AssertionError(f"int32 scatter_reduce amin wrong: {out}")
     log("int32 scatter_reduce_(amin) on the card: ok")
-    return {"timing": timing, "err": err}
+    return {"timing": timing, "err": err, "clusters": clusters, "k2": k2,
+            "intersect": intersect}
+
+
+def _intersection_routes(dev, C: int, P: int, pair) -> dict:
+    """dpk_forward (tensor-core intersection, through its wrapper) and the
+    build's CUDA-core variant (ahsoka_dpk_forward_dp4a, called directly)
+    at k=4: both exactly equal to the plain version; CUDA-event medians
+    at the same cluster size."""
+    from math import comb
+
+    import torch
+
+    from ahsoka_tpu_torch.ops import minplus_stream as ms
+    from ahsoka_tpu_torch.thread.states import full_state_counts
+
+    k, S = 4, comb(11, 4)
+    arrays = random_dp_batch(C, P, seed=_seed(k, C, P), ploidy=k)
+    cand, node = _node_costs(arrays, dev, k)
+    fin_r, bp_r = pair[2](cand, node)
+    G = ms.cluster_size(C, S, k, dev)
+    packed = torch.from_numpy(ms.packed_counts(full_state_counts(k))).to(dev)
+    lib = ms._lib()
+    bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
+    fin = torch.empty((C, S), dtype=torch.float32, device=dev)
+
+    def dp4a():
+        err = lib.ahsoka_dpk_forward_dp4a(
+            cand.data_ptr(), node.data_ptr(), packed.data_ptr(),
+            bp.data_ptr(), fin.data_ptr(), C, P, S, G, SWITCH, AFFINE,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"ahsoka_dpk_forward_dp4a: CUDA error {err}")
+
+    dp4a()
+    fin_m, bp_m = pair[1](cand, node)
+    torch.cuda.synchronize()
+    if not (torch.equal(fin, fin_r) and torch.equal(bp, bp_r)
+            and torch.equal(fin_m, fin_r) and torch.equal(bp_m, bp_r)):
+        raise AssertionError(f"an intersection route != plain at k=4, C={C}"
+                             f", P={P}")
+    return {"C": C, "P": P, "cluster": G,
+            "mma_ms": _median_ms(lambda: pair[1](cand, node), 5),
+            "dp4a_ms": _median_ms(dp4a, 5)}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -392,13 +534,13 @@ def phase_golden(dev) -> None:
 
 # ---------------------------------------------------------------- phase 4
 def _ploidy_map_from_truth(gfa: str, truth: str, cfg) -> dict:
-    from ahsoka_tpu.graph.alleles import enumerate_allele_paths
-    from ahsoka_tpu_torch import host
+    from ahsoka_tpu_torch.graph.alleles import enumerate_allele_paths
     from ahsoka_tpu_torch.pipeline import load_graph_and_bubbles
+    from ahsoka_tpu_torch.utils.accuracy import ploidy_map_from_truth
 
     art = load_graph_and_bubbles(gfa, cfg)
     paths = enumerate_allele_paths(art.graph, art.index)
-    return host.ploidy_map_from_truth(paths, truth)
+    return ploidy_map_from_truth(paths, truth)
 
 
 def _reset_path_counts() -> None:
@@ -425,9 +567,9 @@ def _path_counts() -> dict:
 def _beam_groups(th) -> int:
     """DP groups of a run that take the beam ((P_pad, A, ploidy) groups
     of ``thread_chains_batched`` whose state space exceeds the beam)."""
-    from ahsoka_tpu.thread.states import max_states
     from ahsoka_tpu_torch.thread.dp_torch import (_beam_width_for,
                                                   _bucket_positions)
+    from ahsoka_tpu_torch.thread.states import max_states
 
     return len({(_bucket_positions(dp.num_positions),
                  dp.genotypes.shape[1], c.ploidy)
@@ -447,11 +589,12 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     there is one); ``banded``: at least one chain was scored banded."""
     import dataclasses
 
-    from ahsoka_tpu.utils import substage
-    from ahsoka_tpu_torch import host
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.pipeline import run_phase
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
+    from ahsoka_tpu_torch.utils import substage
+    from ahsoka_tpu_torch.utils.accuracy import score_phased_output
+    from ahsoka_tpu_torch.utils.synth import write_synthetic
 
     work = os.path.join(WORK, name)
     shutil.rmtree(work, ignore_errors=True)
@@ -459,7 +602,7 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     gfa, gaf, truth = (os.path.join(work, f"{name}.{x}")
                        for x in ("gfa", "gaf", "truth"))
     t0 = time.perf_counter()
-    host.write_synthetic(gfa, gaf, spec, truth_path=truth)
+    write_synthetic(gfa, gaf, spec, truth_path=truth)
     plan = spec.plan()
     log(f"{name}: {len(plan)} chains (bubbles, ploidy) "
         f"{sorted(set(plan))}, {spec.total_reads} GAF records generated "
@@ -499,7 +642,11 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
         f"versions on the CPU in {time.perf_counter() - t0:.2f} s: paths "
         "identical")
 
-    acc = host.score_phased_output(outstem, truth)
+    kernel_ms = _dp_kernel_device_ms(dev, th, cfg)
+    log(f"{name}: DP kernels' device time re-threading the run's DP inputs "
+        f"on the card (torch.profiler): {json.dumps(kernel_ms)}")
+
+    acc = score_phased_output(outstem, truth)
     stages = {k: v for k, v in m["stage_seconds"].items()
               if k != "substages"}
     log(f"{name} stage_seconds {json.dumps(stages)}")
@@ -527,15 +674,42 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     if banded and launches["banded"] == 0:
         raise AssertionError(f"{name}: no chain took banded scoring")
     return {"launches": launches, "wall": wall, "beam_groups": groups,
+            "dp_kernel_device_ms": kernel_ms,
             "stage_seconds": stages, "accuracy": acc,
             "clustering_solver_cpu_s": m["stage_seconds"].get(
                 "substages", {}).get("clustering.solver")}
 
 
+def _dp_kernel_device_ms(dev, th, cfg) -> dict:
+    """Device time (ms) and launches of each DP kernel while the run's DP
+    inputs are threaded once more on the card, from a torch.profiler
+    trace of that re-threading alone."""
+    import torch
+
+    from ahsoka_tpu_torch.device import synchronize
+    from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        thread_chains_batched(th["dps"], cfg, chain_configs=th["configs"],
+                              device=dev)
+        synchronize(dev)
+    out = {}
+    for ev in prof.key_averages():
+        for kname in ("dp2_forward", "dp2_backtrace", "dpk_forward",
+                      "dpk_backtrace"):
+            if kname in ev.key:
+                ms, n = out.get(kname, (0.0, 0))
+                out[kname] = (ms + ev.self_device_time_total / 1e3,
+                              n + ev.count)
+    return {k: {"ms": v[0], "launches": v[1]} for k, v in out.items()}
+
+
 def e2e_runs(dev, which) -> dict:
     """The end-to-end runs named in ``which`` (config4s, config3c, mixed,
     config5s)."""
-    from ahsoka_tpu_torch import host
+    from ahsoka_tpu_torch.config import PhasingConfig
+    from ahsoka_tpu_torch.utils.synth import CONFIGS, SynthSpec
 
     threads = min(os.cpu_count() or 1, 8)
     bench = dict(debug_readset_files=False, max_coverage=64, threads=threads)
@@ -544,30 +718,29 @@ def e2e_runs(dev, which) -> dict:
     out = {}
     if "config4s" in which:
         out["config4s"] = phase_e2e(dev, "config4s",
-                                    host.CONFIGS["config4s"],
-                                    host.PhasingConfig(**bench), diploid,
+                                    CONFIGS["config4s"],
+                                    PhasingConfig(**bench), diploid,
                                     0.01)
     if "config3c" in which:
         # scripts/bench_e2e.py's settings for ploidy > 2
         out["config3c"] = phase_e2e(
-            dev, "config3c", host.CONFIGS["config3c"],
-            host.PhasingConfig(ploidy=4, genotype_prior="balanced",
-                               **bench), general, 0.02)
+            dev, "config3c", CONFIGS["config3c"],
+            PhasingConfig(ploidy=4, genotype_prior="balanced", **bench),
+            general, 0.02)
     if "mixed" in which:
-        spec = host.SynthSpec(chain_plan=[(60, 2), (60, 3), (60, 4),
-                                          (20, 5)],
-                              span=3, coverage_per_hap=8.0,
-                              error_rate=0.02, seed=11)
+        spec = SynthSpec(chain_plan=[(60, 2), (60, 3), (60, 4), (20, 5)],
+                         span=3, coverage_per_hap=8.0, error_rate=0.02,
+                         seed=11)
         out["mixed"] = phase_e2e(
             dev, "mixed", spec,
-            host.PhasingConfig(genotype_prior="balanced", **bench),
+            PhasingConfig(genotype_prior="balanced", **bench),
             diploid + general, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
     if "config5s" in which:
         # scripts/bench_e2e.py's settings, the beam width it passes
         out["config5s"] = phase_e2e(
-            dev, "config5s", host.CONFIGS["config5s"],
-            host.PhasingConfig(genotype_prior="balanced",
-                               dp_beam_width=BEAM_WIDTH, **bench),
+            dev, "config5s", CONFIGS["config5s"],
+            PhasingConfig(genotype_prior="balanced",
+                          dp_beam_width=BEAM_WIDTH, **bench),
             diploid + general, 0.02, ploidy_map=True, beam=True,
             banded=True)
     return out
@@ -579,8 +752,8 @@ def phase_beam(dev) -> dict:
     longest hexaploid group shape and on an all-ties batch."""
     import torch
 
-    from ahsoka_tpu.thread.states import full_state_counts
     from ahsoka_tpu_torch.thread import dp_beam
+    from ahsoka_tpu_torch.thread.states import full_state_counts
 
     k = 6
     counts = full_state_counts(k)
@@ -633,7 +806,7 @@ def banded_matrix(R: int, P: int, seed: int):
     two haplotypes over P biallelic positions, alleles flipped at 2%."""
     import numpy as np
 
-    from ahsoka_tpu.score.pairwise import AlleleMatrix
+    from ahsoka_tpu_torch.score.pairwise import AlleleMatrix
 
     rng = np.random.default_rng(seed)
     haps = rng.integers(0, 2, size=(2, P))
@@ -653,13 +826,13 @@ def phase_banded(dev) -> dict:
     """Banded scoring on the card against the CPU on one seeded chain."""
     import numpy as np
 
-    from ahsoka_tpu_torch import host
+    from ahsoka_tpu_torch.config import PhasingConfig
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.score.banded import score_pairs_banded
 
     R, P = 8000, 1500
     matrix = banded_matrix(R, P, seed=9)
-    cfg = host.PhasingConfig()
+    cfg = PhasingConfig()
     score_pairs_banded(matrix, cfg, device=dev)          # warm up
     synchronize(dev)
     t0 = time.perf_counter()
@@ -711,33 +884,38 @@ def main(argv=None) -> int:
     kern = phase_kernels(dev) if "kernels" in phases else None
     if "golden" in phases:
         phase_golden(dev)
+        no_reference_modules("the golden runs")
     e2e = e2e_runs(dev, phases)
+    if "config5s" in phases:
+        no_reference_modules("config5s")
     beam = phase_beam(dev) if "beam" in phases else None
     banded = phase_banded(dev) if "banded" in phases else None
     if phases != set(PHASES):
         log("partial run: no result line")
         return 0
 
-    from ahsoka_tpu_torch.host import loaded_jax_modules
-    jax_mods = loaded_jax_modules(sys.modules)
-    if jax_mods:
-        raise AssertionError(f"jax or a jax module was imported: "
-                             f"{jax_mods[:5]}")
-
+    no_reference_modules("the whole smoke")
     kernels = []
     for name, (src, rep, run, case) in KERNEL_META.items():
         ms, plain_ms = kern["timing"][case][name]
+        bound_ms, bound_by = bound(name, *CASE_SHAPES[case])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
                         "launches": e2e[run]["launches"][name],
                         "max_abs_err": kern["err"][name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                        "library_note": NO_LIBRARY_CALL})
+    log(json.dumps({"dpk_forward_clusters": kern["clusters"],
+                    "dpk_vs_dp2_at_k2": kern["k2"],
+                    "dpk_intersection_routes": kern["intersect"]}))
     c5 = e2e["config5s"]
     log(json.dumps({"beam": beam}))
     log(json.dumps({"banded": banded}))
     log(json.dumps({"config5s": {
         k: c5[k] for k in ("launches", "beam_groups", "wall",
-                           "clustering_solver_cpu_s", "stage_seconds")}}))
+                           "dp_kernel_device_ms", "clustering_solver_cpu_s",
+                           "stage_seconds")}}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

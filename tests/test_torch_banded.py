@@ -91,9 +91,9 @@ def test_banded_matches_dense_port(block):
 def test_native_helpers_load_before_the_worker_pool(tmp_path, monkeypatch):
     """With threads=4 the first call of each native loader (cluster
     editing, coverage cap) runs on the calling thread before any worker
-    exists: the loaders build with g++ without a lock."""
-    from ahsoka_tpu.cluster import _native_ce
-    from ahsoka_tpu.project import _native_covcap
+    exists, so a failed g++ build raises there."""
+    from ahsoka_tpu_torch.cluster import _native_ce
+    from ahsoka_tpu_torch.project import _native_covcap
     from ahsoka_tpu_torch.pipeline import run_phase
 
     gfa, gaf = str(tmp_path / "s.gfa"), str(tmp_path / "s.gaf")

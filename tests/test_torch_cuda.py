@@ -143,6 +143,39 @@ def test_cuda_general_kernels_match_plain(cuda_device, k, C, P):
     assert torch.equal(st.cpu(), st_r)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("ties", [False, True])
+def test_cuda_general_forward_at_every_cluster_size(cuda_device, k, ties):
+    """The general forward kernel equals its plain version at every
+    cluster size it takes (one CTA a chain at k <= 2; 1 to 16 CTAs a chain
+    above), on random batches and on all-ties batches (the same two
+    candidates everywhere, zero node-cost weights: the first minimum must
+    win across CTAs)."""
+    C, P = 3, (10 if k == 5 else 30)
+    dps = [random_dp_inputs(P=P, ploidy=k, num_clusters=2 * k + 1,
+                            seed=k * 31 + i) for i in range(C)]
+    arrays = dp_torch._pack_group(dps, list(range(C)), P)
+    if ties:
+        arrays[0][:] = -1
+        arrays[0][:, :, :2] = [0, 1]
+        arrays[1][:] = 2
+    w = 0.0 if ties else 1.0
+    counts = full_state_counts(k)
+    ca, nc, co, cs, ge = to_torch(*arrays, device=cuda_device)
+    node = dp_torch.node_costs_all(ca, nc, co, cs, ge, counts,
+                                   full_state_validity(k), ploidy=k,
+                                   num_alleles=ge.shape[2], cov_w=w,
+                                   geno_w=w).contiguous()
+    fin_r, bp_r = ms.minplus_forward_streamed(ca.cpu(), node.cpu(), counts,
+                                              ploidy=k, **KW)
+    for g in (ms.CLUSTER_SIZES if k > ms.SMALL_PLOIDY else (1,)):
+        fin, bp = ms.minplus_forward_streamed(ca, node, counts, ploidy=k,
+                                              cluster=g, **KW)
+        torch.cuda.synchronize()
+        assert torch.equal(fin.cpu(), fin_r), g
+        assert torch.equal(bp.cpu(), bp_r), g
+
+
 def test_cuda_general_kernel_equals_diploid_kernel(cuda_device):
     """At ploidy 2 the general forward kernel equals the diploid one bit
     for bit (config4's DP shape)."""

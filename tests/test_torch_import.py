@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, shutil, sys
 import ahsoka_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
                                                "ahsoka_tpu_torch.")
@@ -22,20 +22,41 @@ names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
-from ahsoka_tpu_torch.host import loaded_jax_modules
-print(len(names), loaded_jax_modules(sys.modules))
+from ahsoka_tpu_torch.cli.main import main
+work, data = sys.argv[1], os.path.join("tests", "data")
+shutil.copy(os.path.join(data, "golden_tetra.gaf"), work)
+assert main(["phase", "-g", os.path.join(data, "golden_tetra.gfa"), "-a",
+             os.path.join(work, "golden_tetra.gaf"), "-o",
+             os.path.join(work, "t"), "--device", "cpu", "--ploidy", "4",
+             "--no-genotypes"]) == 0
+assert main(["only-bubbles", "-g", os.path.join(data, "golden_diploid.gfa"),
+             "-o", os.path.join(work, "b")]) == 0
+from ahsoka_tpu_torch.host import loaded_reference_modules
+print(len(names), loaded_reference_modules(sys.modules))
 """
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    """Every port module and chip_smoke imported, golden_tetra phased on
+    the CPU and only-bubbles run on golden_diploid, in a fresh process:
+    no jax, no ahsoka_tpu and no ahsoka_tpu.* module was loaded, and the
+    outputs equal the committed ones."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
-    count, loaded = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    count, loaded = out.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(count) >= 40
     assert loaded == "[]", loaded
+    data = os.path.join(REPO, "tests", "data")
+    for got, want in [("t-result.txt", "golden_tetra-result.txt"),
+                      ("golden_tetra-alignment_identities.txt",
+                       "golden_tetra-alignment_identities.txt"),
+                      ("b-bubbleinfo.txt", "golden_diploid-bubbleinfo.txt")]:
+        with open(tmp_path / got, "rb") as a, \
+                open(os.path.join(data, want), "rb") as b:
+            assert a.read() == b.read(), got
 
 
 def test_resolve_device_cuda_raises_without_card(monkeypatch):

@@ -231,3 +231,59 @@ def test_packed_counts_layout():
     assert not (words[:, 2] >> 16).any()              # padding bytes
     with pytest.raises(ValueError, match="0..255"):
         ms.packed_counts(np.full((2, 2), 300))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_ge_planes_product_is_the_intersection(k):
+    """The int8 0/1 plane table the CUDA kernel multiplies on the tensor
+    cores: A @ B.T equals sum_m min(a_m, b_m) exactly, on the state
+    counts against random mapped counts in 0..k."""
+    rng = np.random.default_rng(k)
+    counts = full_state_counts(k)
+    mapped = rng.integers(0, k + 1, size=(97, 2 * k))
+    A = ms.ge_planes(counts, k).astype(np.int32)
+    B = ms.ge_planes(mapped, k).astype(np.int32)
+    assert A.shape == (counts.shape[0], ms.plane_bytes(k))
+    assert ms.plane_bytes(k) % 32 == 0 and ms.plane_bytes(k) >= 2 * k * k
+    assert set(np.unique(A)) <= {0, 1}
+    want = np.minimum(counts[:, None, :], mapped[None, :, :]).sum(-1)
+    np.testing.assert_array_equal(A @ B.T, want)
+    # byte kk belongs to lane q = kk % 16 // 4 of an mma.m16n8k32
+    # fragment, which holds the planes of slots q, q+4, q+8 only
+    for kk in range(ms.plane_bytes(k)):
+        q = kk % 16 // 4
+        assert not A[:, kk].any() or any(
+            np.array_equal(A[:, kk], counts[:, m] >= u)
+            for m in range(q, 2 * k, 4) for u in range(1, k + 1))
+    with pytest.raises(ValueError, match="0..2"):
+        ms.ge_planes(np.full((1, 4), 3), 2)
+
+
+@pytest.mark.parametrize("C,S,want", [
+    (20, 330, 4),       # config3c's group: 20 clusters of 4 CTAs
+    (1, 330, 16),       # one tetraploid chain: 16 CTAs of 21 states
+    (1000, 330, 1),     # many chains: one CTA a chain
+    (4, 2002, 16),      # k=5, few chains: the largest cluster
+    (37, 56, 1),        # k=3: 56 x 28 cells a CTA are too few to split
+    (40, 330, 2)])      # 40 chains: 80 of the 132 SMs
+def test_choose_cluster(C, S, want):
+    assert ms.choose_cluster(C, S) == want
+
+
+def test_choose_cluster_respects_occupancy():
+    """A cluster size of which fewer than C clusters fit at once on the
+    card is not taken."""
+    assert ms.choose_cluster(8, 330, max_active=lambda g: 7 if g == 16
+                             else 132 // g) == 8
+    assert ms.choose_cluster(20, 330, num_sms=40) == 2
+
+
+def test_cluster_argument_checks():
+    counts = full_state_counts(4)
+    cand = torch.zeros((2, 4, 8), dtype=torch.int32)
+    node = torch.zeros((2, 4, 330))
+    # a CPU tensor takes the plain version whatever the cluster size
+    fin, _ = ms.minplus_forward_streamed(cand, node, counts, ploidy=4,
+                                         cluster=16, **KW)
+    assert fin.shape == (2, 330)
+    assert ms.cluster_size(5, 10, 2, "cpu") == 1
