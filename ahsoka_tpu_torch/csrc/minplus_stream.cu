@@ -38,10 +38,13 @@
 // P=256) 1.1 G fp32 operations and 1.1 G int8 ones, 0.035 ms at the
 // card's 67 TFLOP/s and 1,979 TOP/s; the bytes (node costs in,
 // backpointers out) take less.  The P positions form a serial chain, so
-// each position pays a fixed latency (barriers, the lane and warp
-// reductions, the remote stores: about 4 us a position on an H100 for a
-// P=2048 chain, chip_smoke.py), and a group of few chains can fill the
-// card only by spreading each chain over several SMs.
+// each position pays a fixed latency, and a group of few chains can fill
+// the card only by spreading each chain over several SMs.  On an H100 a
+// position of one P=2048 tetraploid chain at G = 16 takes 3.9 us: 1.2
+// us the m-tile loop, 0.5 us the B build, 0.7 us the cluster barrier
+// over a CTA barrier, 1.5 us the rest (prefetch, lane reductions,
+// stores); at k = 5 the m-tile loop is 21 of 25 us
+// (tools/dpk_forward_ablation.py, PERF.md).
 //
 // Design (k >= 3):
 // * A chain runs on a thread-block cluster of G CTAs (G in 1, 2, 4, 8,
@@ -65,10 +68,12 @@
 //   4*blk + lane%4) and the threshold u in the unrolled register index,
 //   so each lane needs mapped[] for at most three slots.  Integer sums of
 //   0/1 products are exact in any order.  This is the GE-matmul of the TPU
-//   body (_stream_kernel_ge) on Hopper's int8 tensor cores.  The
-//   accumulator starts at the bit pattern of 1.5 * 2^23 + k, so it ends
-//   as that of the float 1.5 * 2^23 + (k - inter): one subtraction gives
-//   the switch count as a float.
+//   body (_stream_kernel_ge) on Hopper's int8 tensor cores; at k = 4 it
+//   measured 2.4x faster than the same kernel with the intersection on
+//   the CUDA cores (__vminu4 + __dp4a over byte-packed counts, PERF.md).
+//   The accumulator starts at the bit pattern of 1.5 * 2^23 + k, so it
+//   ends as that of the float 1.5 * 2^23 + (k - inter): one subtraction
+//   gives the switch count as a float.
 // * Each lane turns its accumulator cells into cost[s] + trans and keeps a
 //   running (best, first s) per destination column over ascending s; a
 //   lexicographic (value, index) reduction across lanes, and across the SP
@@ -77,7 +82,8 @@
 // * Node costs of the CTA's slice and candidate rows are prefetched four
 //   positions ahead with cp.async while earlier positions compute.
 // * With several CTAs an SM (many chains), CTAs run fewer warps so that
-//   every chain is resident at once.
+//   every chain is resident at once, as far as shared memory lets that
+//   many CTAs share an SM (at k = 5 one CTA fills it).
 // k <= 2 (S = 2, 10) runs dpk_forward_small instead: one warp a chain on
 // the CUDA cores, which measured faster there than 16 x 8 tensor-core
 // tiles of mostly padding.
@@ -274,38 +280,7 @@ __device__ __forceinline__ void build_b(const int* __restrict__ prev,
   }
 }
 
-// mapped[0..M-1] of destination state t as bytes, four to a word (the
-// CUDA-core intersection of the TC = false build, for comparison)
 template <int K>
-__device__ __forceinline__ void mapped_words(const int* __restrict__ prev,
-                                             const int* __restrict__ cur,
-                                             const unsigned* __restrict__ counts,
-                                             int t,
-                                             unsigned (&out)[Layout<K>::W]) {
-  using L = Layout<K>;
-  unsigned words[L::W];
-#pragma unroll
-  for (int w = 0; w < L::W; ++w) {
-    words[w] = __ldg(counts + static_cast<size_t>(t) * L::W + w);
-    out[w] = 0;
-  }
-#pragma unroll
-  for (int mp = 0; mp < L::M; ++mp) {
-    const int pv = prev[mp];
-    unsigned v = 0;
-#pragma unroll
-    for (int mc = 0; mc < L::M; ++mc)
-      v += (pv >= 0 && cur[mc] == pv) ? (words[mc / 4] >> (8 * (mc % 4))) & 0xff
-                                      : 0;
-    out[mp / 4] |= v << (8 * (mp % 4));
-  }
-}
-
-// TC = true: the tensor-core intersection (the kernel the wrapper runs).
-// TC = false: the same kernel with the intersection on the CUDA cores,
-// sum_w dp4a(vminu4(counts[s] words, mapped words)), built only as
-// ahsoka_dpk_forward_dp4a for chip_smoke.py's comparison at k = 4.
-template <int K, bool TC>
 __global__ void __launch_bounds__(kFwdMaxWarps * 32)
 dpk_forward(const int* __restrict__ cand,          // [C, P, M]
             const float* __restrict__ node,        // [C, P, S]
@@ -357,21 +332,14 @@ dpk_forward(const int* __restrict__ cand,          // [C, P, M]
                 cand_c + static_cast<size_t>(r) * M + tid);
   };
 
-  // the plane table, rows S..S16-1 zero (TC = false: the byte-packed
-  // counts, W words a row, in the same space)
+  // the plane table, rows S..S16-1 zero
   constexpr int CH = L::KPAD / 16;
-  unsigned* cnt_s = reinterpret_cast<unsigned*>(A);
-  if constexpr (TC) {
-    for (int i = tid; i < S16 * CH; i += nthr) {
-      const int row = i / CH, ch = i % CH;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (row < S)
-        v = __ldg(reinterpret_cast<const int4*>(planes + row * L::KPAD) + ch);
-      *reinterpret_cast<int4*>(A + row * L::STRIDE_A + ch * 16) = v;
-    }
-  } else {
-    for (int i = tid; i < S16 * L::W; i += nthr)
-      cnt_s[i] = i < S * L::W ? __ldg(counts + i) : 0u;
+  for (int i = tid; i < S16 * CH; i += nthr) {
+    const int row = i / CH, ch = i % CH;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (row < S)
+      v = __ldg(reinterpret_cast<const int4*>(planes + row * L::KPAD) + ch);
+    *reinterpret_cast<int4*>(A + row * L::STRIDE_A + ch * 16) = v;
   }
   for (int s = tid; s < S16; s += nthr) {
     cfull[s] = s < S ? node_c[s] : inf;
@@ -413,89 +381,45 @@ dpk_forward(const int* __restrict__ cand,          // [C, P, M]
           best[nt][p] = inf;
           bidx[nt][p] = 0;
         }
-      if constexpr (TC) {
-        unsigned bfr[2][L::KS][2];
+      unsigned bfr[2][L::KS][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int lc = ni * 16 + nt * 8 + g;
+        const int t = lc < tc ? t0 + lc : 0;
+        build_b<K>(cprow, ccrow, counts, t, q, bfr[nt]);
+      }
+      // A fragments and source costs of the next m-tile load while the
+      // current one computes
+      unsigned a[L::KS][4];
+      float c_lo = 0.0f, c_hi = 0.0f;
+      if (sp < MT) load_a<K>(A, cprev, sp, g, q, a, c_lo, c_hi);
+      for (int mt = sp; mt < MT; mt += SP) {
+        const int r0 = mt * 16 + g;
+        unsigned an[L::KS][4];
+        float n_lo = 0.0f, n_hi = 0.0f;
+        if (mt + SP < MT) load_a<K>(A, cprev, mt + SP, g, q, an, n_lo, n_hi);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const int lc = ni * 16 + nt * 8 + g;
-          const int t = lc < tc ? t0 + lc : 0;
-          build_b<K>(cprow, ccrow, counts, t, q, bfr[nt]);
-        }
-        // A fragments and source costs of the next m-tile load while the
-        // current one computes
-        unsigned a[L::KS][4];
-        float c_lo = 0.0f, c_hi = 0.0f;
-        if (sp < MT) load_a<K>(A, cprev, sp, g, q, a, c_lo, c_hi);
-        for (int mt = sp; mt < MT; mt += SP) {
-          const int r0 = mt * 16 + g;
-          unsigned an[L::KS][4];
-          float n_lo = 0.0f, n_hi = 0.0f;
-          if (mt + SP < MT) load_a<K>(A, cprev, mt + SP, g, q, an, n_lo, n_hi);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            int acc[4] = {kBias + K, kBias + K, kBias + K, kBias + K};
-#pragma unroll
-            for (int ks = 0; ks < L::KS; ++ks)
-              mma_s8(acc, a[ks], bfr[nt][ks][0], bfr[nt][ks][1]);
-            // rows r0 then r0 + 8: ascending s within each column
-            relax(acc[0], c_lo, r0, switch_cost, af1, af0, best[nt][0],
-                  bidx[nt][0]);
-            relax(acc[1], c_lo, r0, switch_cost, af1, af0, best[nt][1],
-                  bidx[nt][1]);
-            relax(acc[2], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][0],
-                  bidx[nt][0]);
-            relax(acc[3], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][1],
-                  bidx[nt][1]);
-          }
+          int acc[4] = {kBias + K, kBias + K, kBias + K, kBias + K};
 #pragma unroll
           for (int ks = 0; ks < L::KS; ++ks)
-#pragma unroll
-            for (int x = 0; x < 4; ++x) a[ks][x] = an[ks][x];
-          c_lo = n_lo;
-          c_hi = n_hi;
+            mma_s8(acc, a[ks], bfr[nt][ks][0], bfr[nt][ks][1]);
+          // rows r0 then r0 + 8: ascending s within each column
+          relax(acc[0], c_lo, r0, switch_cost, af1, af0, best[nt][0],
+                bidx[nt][0]);
+          relax(acc[1], c_lo, r0, switch_cost, af1, af0, best[nt][1],
+                bidx[nt][1]);
+          relax(acc[2], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][0],
+                bidx[nt][0]);
+          relax(acc[3], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][1],
+                bidx[nt][1]);
         }
-      } else {
-        // columns 2q, 2q + 1 of each n-tile: mapped slot counts as bytes
-        unsigned colw[2][2][L::W];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int ks = 0; ks < L::KS; ++ks)
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const int lc = ni * 16 + nt * 8 + 2 * q + p;
-            mapped_words<K>(cprow, ccrow, counts, lc < tc ? t0 + lc : 0,
-                            colw[nt][p]);
-          }
-        for (int mt = sp; mt < MT; mt += SP) {
-          const int r0 = mt * 16 + g;
-          const float c_lo = cprev[r0], c_hi = cprev[r0 + 8];
-          unsigned rw[2][L::W];
-#pragma unroll
-          for (int w = 0; w < L::W; ++w) {
-            rw[0][w] = cnt_s[r0 * L::W + w];
-            rw[1][w] = cnt_s[(r0 + 8) * L::W + w];
-          }
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            int acc[4];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              unsigned inter = 0;
-#pragma unroll
-              for (int w = 0; w < L::W; ++w)
-                inter = __dp4a(__vminu4(rw[x / 2][w], colw[nt][x % 2][w]),
-                               0x01010101u, inter);
-              acc[x] = kBias + K - static_cast<int>(inter);
-            }
-            relax(acc[0], c_lo, r0, switch_cost, af1, af0, best[nt][0],
-                  bidx[nt][0]);
-            relax(acc[1], c_lo, r0, switch_cost, af1, af0, best[nt][1],
-                  bidx[nt][1]);
-            relax(acc[2], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][0],
-                  bidx[nt][0]);
-            relax(acc[3], c_hi, r0 + 8, switch_cost, af1, af0, best[nt][1],
-                  bidx[nt][1]);
-          }
-        }
+          for (int x = 0; x < 4; ++x) a[ks][x] = an[ks][x];
+        c_lo = n_lo;
+        c_hi = n_hi;
       }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -664,15 +588,15 @@ dpk_backtrace(const int* __restrict__ bp,           // [C, P, S]
   }
 }
 
-template <int K, bool TC = true>
+template <int K>
 cudaError_t prepare(int S, int G, int per_sm, Geometry* geo) {
   *geo = geometry<K>(S, G, per_sm);
   cudaError_t e = cudaFuncSetAttribute(
-      dpk_forward<K, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dpk_forward<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(geo->smem));
   if (e != cudaSuccess) return e;
   if (G > 8)
-    e = cudaFuncSetAttribute(dpk_forward<K, TC>,
+    e = cudaFuncSetAttribute(dpk_forward<K>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   return e;
@@ -693,7 +617,7 @@ void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <int K, bool TC = true>
+template <int K>
 int launch_forward(const void* cand, const void* node, const void* planes,
                    const void* counts, void* bp, void* final_cost, int C,
                    int P, int S, int G, float switch_cost, float affine_cost,
@@ -707,21 +631,31 @@ int launch_forward(const void* cand, const void* node, const void* planes,
         static_cast<float*>(final_cost), P, S, switch_cost, affine_cost);
     return static_cast<int>(cudaGetLastError());
   } else {
-    // CTAs each SM holds; fewer warps a CTA when there are several, so
-    // that all C*G CTAs are resident at once (the register file sets how
-    // many warps an SM holds)
+    // CTAs each SM holds: as many as keep all C*G CTAs resident at once,
+    // but no more than its shared memory fits.  With several, each CTA
+    // runs fewer warps (the register file sets how many warps an SM
+    // holds).
     cudaFuncAttributes fa;
     int device = 0, sms = 0;
-    cudaError_t e = cudaFuncGetAttributes(&fa, dpk_forward<K, TC>);
+    cudaError_t e = cudaFuncGetAttributes(&fa, dpk_forward<K>);
     if (e == cudaSuccess) e = cudaGetDevice(&device);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
     if (e != cudaSuccess) return static_cast<int>(e);
     const long ctas = static_cast<long>(C) * G;
-    const int per_sm = static_cast<int>((ctas + sms - 1) / sms);
+    int per_sm = static_cast<int>((ctas + sms - 1) / sms);
     Geometry geo;
-    e = prepare<K, TC>(S, G, per_sm, &geo);
+    e = prepare<K>(S, G, per_sm, &geo);
+    if (e == cudaSuccess && per_sm > 1) {
+      int fit = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, dpk_forward<K>,
+                                                        32, geo.smem);
+      if (e == cudaSuccess && fit < per_sm) {
+        per_sm = fit > 1 ? fit : 1;
+        e = prepare<K>(S, G, per_sm, &geo);
+      }
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     const int sm_warps = 65536 / (32 * (fa.numRegs > 0 ? fa.numRegs : 1));
     const int cap = sm_warps / per_sm;
@@ -730,7 +664,7 @@ int launch_forward(const void* cand, const void* node, const void* planes,
     cudaLaunchAttribute attr;
     cluster_config(&cfg, &attr, geo, C, G, stream);
     e = cudaLaunchKernelEx(
-        &cfg, dpk_forward<K, TC>, static_cast<const int*>(cand),
+        &cfg, dpk_forward<K>, static_cast<const int*>(cand),
         static_cast<const float*>(node), static_cast<const int8_t*>(planes),
         static_cast<const unsigned*>(counts), static_cast<int*>(bp),
         static_cast<float*>(final_cost), P, S, G, geo.Tc, geo.SP,
@@ -749,7 +683,7 @@ int max_clusters(int S, int G, int* out) {
   cudaLaunchAttribute attr;
   cluster_config(&cfg, &attr, geo, 1, G, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, dpk_forward<K, true>, &cfg));
+      cudaOccupancyMaxActiveClusters(out, dpk_forward<K>, &cfg));
 }
 
 }  // namespace
@@ -779,20 +713,6 @@ int ahsoka_dpk_forward(const void* cand, const void* node, const void* planes,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The forward pass at k = 4 with the intersection on the CUDA cores
-// (dp4a over byte-packed counts) instead of the tensor cores, otherwise
-// the same kernel: chip_smoke.py times the two at config3c's group.
-int ahsoka_dpk_forward_dp4a(const void* cand, const void* node,
-                            const void* counts, void* bp, void* final_cost,
-                            int C, int P, int S, int G, float switch_cost,
-                            float affine_cost, void* stream) {
-  if (C <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
-  return launch_forward<4, false>(cand, node, nullptr, counts, bp,
-                                  final_cost, C, P, S, G, switch_cost,
-                                  affine_cost,
-                                  static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of G CTAs of the forward kernel at (M, S) that the current

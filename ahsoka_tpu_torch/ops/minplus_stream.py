@@ -11,7 +11,7 @@ M = 2k candidate slots and S = C(3k-1, k) states:
     minplus_forward_streamed(candidates [C, P, M] int32,
                              node_costs [C, P, S] float32,
                              counts_table [S, M], *, ploidy, switch_cost,
-                             affine_cost, cluster=None)
+                             affine_cost)
         -> final_costs [C, S] float32, backptrs [C, P, S] int32 (bp[:, 0] = 0)
     backtrace_streamed(backptrs [C, P, S] int32, final_state [C] int32)
         -> states [C, P] int32
@@ -26,14 +26,14 @@ to the other.  Each wrapper counts its kernel launches in
 
 The host half of the CUDA forward lives here: the int8 0/1 plane table
 its tensor cores multiply (``ge_planes``) and the CTAs a chain spreads
-over (``choose_cluster``, ``cluster_size``; ``cluster`` pins it).
+over (``choose_cluster``, ``cluster_size``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +48,6 @@ MAX_PLOIDY = 5                   # the build instantiates k = 1..5
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs a chain may spread over
 MIN_CTA_CELLS = 4096             # (source, destination) cells a CTA keeps
 SMALL_PLOIDY = 2                 # k <= 2: one warp a chain, CUDA cores
-NUM_SMS = 132                    # H100 SXM; on the card its own count
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,9 +57,6 @@ def _lib() -> ctypes.CDLL:
         lib.ahsoka_dpk_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, cf, cf, vp]
         lib.ahsoka_dpk_forward.restype = ci
-        lib.ahsoka_dpk_forward_dp4a.argtypes = [vp, vp, vp, vp, vp, ci, ci,
-                                                ci, ci, cf, cf, vp]
-        lib.ahsoka_dpk_forward_dp4a.restype = ci
         lib.ahsoka_dpk_max_clusters.argtypes = [ci, ci, ci,
                                                 ctypes.POINTER(ci)]
         lib.ahsoka_dpk_max_clusters.restype = ci
@@ -119,20 +115,20 @@ def ge_planes(values, ploidy: int) -> np.ndarray:
     return out
 
 
-def choose_cluster(C: int, S: int, num_sms: int = NUM_SMS,
-                   max_active: Optional[Callable[[int], int]] = None) -> int:
+def choose_cluster(C: int, S: int, num_sms: int,
+                   max_active: Callable[[int], int]) -> int:
     """CTAs per chain: the largest G in CLUSTER_SIZES such that the C
     clusters of G CTAs fill at most the card's ``num_sms`` SMs, all run at
-    once (``max_active(G)`` clusters fit on the card, by default
-    num_sms // G), and each CTA keeps at least MIN_CTA_CELLS (source,
-    destination) cells of a position: below that a position's fixed
-    latency (barriers, reductions, a few microseconds) outweighs what a
-    further split saves.  1 for many-chain groups."""
+    once (``max_active(G)`` clusters fit on the card), and each CTA keeps
+    at least MIN_CTA_CELLS (source, destination) cells of a position:
+    below that a position's fixed latency (barriers, reductions, a few
+    microseconds) outweighs what a further split saves.  1 for many-chain
+    groups."""
     best = 1
     for g in CLUSTER_SIZES[1:]:
         if S * -(-S // g) < MIN_CTA_CELLS or C * g > num_sms:
             break
-        if C <= (max_active(g) if max_active else num_sms // g):
+        if C <= max_active(g):
             best = g
     return best
 
@@ -175,11 +171,9 @@ def _device_tables(counts: np.ndarray, ploidy: int, dev: torch.device):
 def minplus_forward_streamed(candidates: torch.Tensor,
                              node_costs: torch.Tensor, counts_table, *,
                              ploidy: int, switch_cost: float,
-                             affine_cost: float,
-                             cluster: Optional[int] = None):
+                             affine_cost: float):
     """General-ploidy min-plus forward pass over a chain batch (see the
-    module doc).  ``cluster`` pins the CTAs per chain of the CUDA kernel
-    (one of CLUSTER_SIZES; default ``choose_cluster``)."""
+    module doc)."""
     M = 2 * ploidy
     _check(candidates, "candidates", torch.int32, 3, M)
     _check(node_costs, "node_costs", torch.float32, 3)
@@ -199,10 +193,24 @@ def minplus_forward_streamed(candidates: torch.Tensor,
     if not 1 <= ploidy <= MAX_PLOIDY:
         raise ValueError(f"the CUDA kernel takes ploidy 1..{MAX_PLOIDY}, "
                          f"got {ploidy}")
-    if cluster is not None and cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got "
-                         f"{cluster}")
     C, P, _ = candidates.shape
+    G = cluster_size(C, S, ploidy, candidates.device) if C and P else 1
+    return _forward(candidates, node_costs, counts, ploidy, G, switch_cost,
+                    affine_cost)
+
+
+def _forward(candidates: torch.Tensor, node_costs: torch.Tensor,
+             counts: np.ndarray, ploidy: int, G: int, switch_cost: float,
+             affine_cost: float):
+    """The CUDA forward kernel at G CTAs a chain (one of CLUSTER_SIZES; 1
+    at ploidy <= SMALL_PLOIDY), on checked CUDA tensors and the [S, M]
+    counts table."""
+    if G not in (CLUSTER_SIZES if ploidy > SMALL_PLOIDY else (1,)):
+        raise ValueError(f"ploidy {ploidy} cannot run {G} CTAs a chain")
+    if not (candidates.is_cuda and node_costs.is_cuda):
+        raise ValueError("the CUDA forward kernel takes CUDA tensors")
+    C, P, M = candidates.shape
+    S = node_costs.shape[2]
     dev = candidates.device
     if C == 0 or P == 0:
         return (torch.zeros((C, S), dtype=torch.float32, device=dev),
@@ -210,10 +218,6 @@ def minplus_forward_streamed(candidates: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         planes, packed = _device_tables(counts, ploidy, dev)
-        if ploidy <= SMALL_PLOIDY and cluster not in (None, 1):
-            raise ValueError(f"ploidy {ploidy} runs one CTA a chain, got "
-                             f"cluster={cluster}")
-        G = cluster or cluster_size(C, S, ploidy, dev)
         bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
         fin = torch.empty((C, S), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream

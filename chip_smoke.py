@@ -19,14 +19,13 @@ JAX package (``ahsoka_tpu``):
      an all-ties case;
    - the general-ploidy kernels at config3c's DP shape (k=4, C=20,
      P=256), k=1 (C=1000, P=56), k=3 (C=37, P=56), k=5 (C=4, P=64,
-     2002 states, 16 CTAs a chain), one chain at each ploidy (k=1-3 at
-     P=300, a long tetraploid chain at C=1, P=2048, k=5 at P=64) and
-     all-ties k=4 and k=5 batches spread over clusters; the general
-     forward at every cluster size (1-16 CTAs a chain) at k=3, 4 and 5;
-     its tensor-core intersection against the same kernel with the
-     intersection on the CUDA cores (dp4a) at config3c's shape and the
-     P=2048 chain; and the general forward equal to the diploid one at
-     k=2, timed beside it (C=1000, P=56 and C=1, P=10,000);
+     2002 states, 16 CTAs a chain; and C=200, P=12, one CTA an SM), one
+     chain at each ploidy (k=1-3 at P=300, a long tetraploid chain at
+     C=1, P=2048, k=5 at P=64) and all-ties k=4 and k=5 batches spread
+     over clusters; the general forward at every cluster size (1-16 CTAs
+     a chain) at k=3, 4 and 5; and the general forward equal to the
+     diploid one at k=2, timed beside it (C=1000, P=56 and C=1,
+     P=10,000);
 3. the golden diploid fixture through the port's ``run_only_bubbles`` and
    ``run_phase``, and the golden tetraploid one through the port's CLI
    (``--ploidy 4 --no-genotypes``), on the card, byte-equal to
@@ -345,11 +344,11 @@ def phase_kernels(dev) -> dict:
                "dp2_backtrace", md.backtrace_diploid,
                md.backtrace_diploid_ref)
 
-    def general(k, cluster=None):
+    def general(k):
         counts = full_state_counts(k)
         return ("dpk_forward",
                 lambda c, n: ms.minplus_forward_streamed(
-                    c, n, counts, ploidy=k, cluster=cluster, **kw),
+                    c, n, counts, ploidy=k, **kw),
                 lambda c, n: minplus_forward_ref(
                     c, n, counts, ploidy=k, **kw),
                 "dpk_backtrace", ms.backtrace_streamed, backtrace_ref)
@@ -362,7 +361,9 @@ def phase_kernels(dev) -> dict:
                      ("all_ties", 2, 300, 24, 5, 5)]
     # config3c's group, many chains at k=1 and 3, one chain at each
     # ploidy (k=4: tetra_long), k=5 across the largest cluster (k5,
-    # k5_c1) and all-ties batches spread over clusters (G = 4 and 16)
+    # k5_c1) and with more chains than SMs (k5_c200: one CTA an SM fits
+    # its shared memory) and all-ties batches spread over clusters (G = 4
+    # and 16)
     general_cases = [("config3c", 4, 20, 256, 10, 3),
                      ("k1", 1, 1000, 56, 10, 5),
                      ("k3", 3, 37, 56, 10, 5),
@@ -373,6 +374,7 @@ def phase_kernels(dev) -> dict:
                      ("k2_c1", 2, 1, 300, 10, 1),
                      ("k3_c1", 3, 1, 300, 10, 1),
                      ("k5_c1", 5, 1, 64, 5, 1),
+                     ("k5_c200", 5, 200, 12, 5, 1),
                      ("all_ties_k5", 5, 2, 20, 5, 1)]
     timing, err, clusters = {}, {}, {}
     for case in diploid_cases:
@@ -383,29 +385,21 @@ def phase_kernels(dev) -> dict:
         log(f"{name}: dpk_forward runs {clusters[name]} CTA(s) a chain")
         timing[name] = _kernel_pair_case(general(k), case, dev, err)
 
-    # every cluster size at k = 3, 4, 5, exactly
+    # every cluster size at k = 3, 4, 5, exactly (the wrapper's launcher
+    # at a given cluster size)
     for k, P in ((3, 40), (4, 40), (5, 12)):
         arrays = random_dp_batch(2, P, seed=_seed(k, 2, P), ploidy=k)
         cand, node = _node_costs(arrays, dev, k)
         fin_r, bp_r = general(k)[2](cand, node)
         for g in ms.CLUSTER_SIZES:
-            fin_g, bp_g = general(k, cluster=g)[1](cand, node)
+            fin_g, bp_g = ms._forward(cand, node, full_state_counts(k), k,
+                                      g, **kw)
             torch.cuda.synchronize()
             if not (torch.equal(fin_g, fin_r) and torch.equal(bp_g, bp_r)):
                 raise AssertionError(f"dpk_forward != plain at k={k} with "
                                      f"{g} CTAs a chain")
     log(f"dpk_forward at k=3, 4, 5 with {ms.CLUSTER_SIZES} CTAs a chain: "
         "exact")
-
-    # the tensor-core intersection against the same kernel with the
-    # intersection on the CUDA cores (dp4a over byte-packed counts), k=4
-    intersect = {}
-    for name, C, P in (("config3c", 20, 256), ("tetra_long", 1, 2048)):
-        intersect[name] = _intersection_routes(dev, C, P, general(4))
-        log(f"k=4 C={C} P={P} ({name}) intersection: both routes exact; "
-            f"tensor cores {intersect[name]['mma_ms']:.4f} ms, CUDA cores "
-            f"(dp4a) {intersect[name]['dp4a_ms']:.4f} ms, "
-            f"{intersect[name]['cluster']} CTAs a chain")
 
     # at ploidy 2 the general forward equals the diploid one bit for bit;
     # their times side by side (config4's group and a config2 chain)
@@ -434,50 +428,7 @@ def phase_kernels(dev) -> dict:
     if out.cpu().tolist() != [3, 9, 2]:
         raise AssertionError(f"int32 scatter_reduce amin wrong: {out}")
     log("int32 scatter_reduce_(amin) on the card: ok")
-    return {"timing": timing, "err": err, "clusters": clusters, "k2": k2,
-            "intersect": intersect}
-
-
-def _intersection_routes(dev, C: int, P: int, pair) -> dict:
-    """dpk_forward (tensor-core intersection, through its wrapper) and the
-    build's CUDA-core variant (ahsoka_dpk_forward_dp4a, called directly)
-    at k=4: both exactly equal to the plain version; CUDA-event medians
-    at the same cluster size."""
-    from math import comb
-
-    import torch
-
-    from ahsoka_tpu_torch.ops import minplus_stream as ms
-    from ahsoka_tpu_torch.thread.states import full_state_counts
-
-    k, S = 4, comb(11, 4)
-    arrays = random_dp_batch(C, P, seed=_seed(k, C, P), ploidy=k)
-    cand, node = _node_costs(arrays, dev, k)
-    fin_r, bp_r = pair[2](cand, node)
-    G = ms.cluster_size(C, S, k, dev)
-    packed = torch.from_numpy(ms.packed_counts(full_state_counts(k))).to(dev)
-    lib = ms._lib()
-    bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
-    fin = torch.empty((C, S), dtype=torch.float32, device=dev)
-
-    def dp4a():
-        err = lib.ahsoka_dpk_forward_dp4a(
-            cand.data_ptr(), node.data_ptr(), packed.data_ptr(),
-            bp.data_ptr(), fin.data_ptr(), C, P, S, G, SWITCH, AFFINE,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"ahsoka_dpk_forward_dp4a: CUDA error {err}")
-
-    dp4a()
-    fin_m, bp_m = pair[1](cand, node)
-    torch.cuda.synchronize()
-    if not (torch.equal(fin, fin_r) and torch.equal(bp, bp_r)
-            and torch.equal(fin_m, fin_r) and torch.equal(bp_m, bp_r)):
-        raise AssertionError(f"an intersection route != plain at k=4, C={C}"
-                             f", P={P}")
-    return {"C": C, "P": P, "cluster": G,
-            "mma_ms": _median_ms(lambda: pair[1](cand, node), 5),
-            "dp4a_ms": _median_ms(dp4a, 5)}
+    return {"timing": timing, "err": err, "clusters": clusters, "k2": k2}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -907,8 +858,7 @@ def main(argv=None) -> int:
                         "bound_by": bound_by, "library_ms": None,
                         "library_note": NO_LIBRARY_CALL})
     log(json.dumps({"dpk_forward_clusters": kern["clusters"],
-                    "dpk_vs_dp2_at_k2": kern["k2"],
-                    "dpk_intersection_routes": kern["intersect"]}))
+                    "dpk_vs_dp2_at_k2": kern["k2"]}))
     c5 = e2e["config5s"]
     log(json.dumps({"beam": beam}))
     log(json.dumps({"banded": banded}))

@@ -169,8 +169,7 @@ def test_cuda_general_forward_at_every_cluster_size(cuda_device, k, ties):
     fin_r, bp_r = ms.minplus_forward_streamed(ca.cpu(), node.cpu(), counts,
                                               ploidy=k, **KW)
     for g in (ms.CLUSTER_SIZES if k > ms.SMALL_PLOIDY else (1,)):
-        fin, bp = ms.minplus_forward_streamed(ca, node, counts, ploidy=k,
-                                              cluster=g, **KW)
+        fin, bp = ms._forward(ca, node, counts, k, g, **KW)
         torch.cuda.synchronize()
         assert torch.equal(fin.cpu(), fin_r), g
         assert torch.equal(bp.cpu(), bp_r), g

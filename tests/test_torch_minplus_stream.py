@@ -267,23 +267,32 @@ def test_ge_planes_product_is_the_intersection(k):
     (37, 56, 1),        # k=3: 56 x 28 cells a CTA are too few to split
     (40, 330, 2)])      # 40 chains: 80 of the 132 SMs
 def test_choose_cluster(C, S, want):
-    assert ms.choose_cluster(C, S) == want
+    """On an H100 (132 SMs, 132 // G clusters of G CTAs resident)."""
+    assert ms.choose_cluster(C, S, 132, lambda g: 132 // g) == want
 
 
 def test_choose_cluster_respects_occupancy():
     """A cluster size of which fewer than C clusters fit at once on the
     card is not taken."""
-    assert ms.choose_cluster(8, 330, max_active=lambda g: 7 if g == 16
+    assert ms.choose_cluster(8, 330, 132, lambda g: 7 if g == 16
                              else 132 // g) == 8
-    assert ms.choose_cluster(20, 330, num_sms=40) == 2
+    assert ms.choose_cluster(20, 330, 40, lambda g: 40 // g) == 2
 
 
 def test_cluster_argument_checks():
     counts = full_state_counts(4)
     cand = torch.zeros((2, 4, 8), dtype=torch.int32)
     node = torch.zeros((2, 4, 330))
-    # a CPU tensor takes the plain version whatever the cluster size
-    fin, _ = ms.minplus_forward_streamed(cand, node, counts, ploidy=4,
-                                         cluster=16, **KW)
+    # a CPU tensor takes the plain version
+    fin, _ = ms.minplus_forward_streamed(cand, node, counts, ploidy=4, **KW)
     assert fin.shape == (2, 330)
     assert ms.cluster_size(5, 10, 2, "cpu") == 1
+    # the kernel's launcher takes the cluster sizes of CLUSTER_SIZES (1 at
+    # ploidy <= 2) and CUDA tensors only: a CPU tensor never reaches it
+    with pytest.raises(ValueError, match="3 CTAs"):
+        ms._forward(cand, node, counts, 4, 3, **KW)
+    with pytest.raises(ValueError, match="2 CTAs"):
+        ms._forward(cand[:, :, :4], node[:, :, :10], full_state_counts(2),
+                    2, 2, **KW)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ms._forward(cand, node, counts, 4, 16, **KW)

@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Where a position of ``dpk_forward``'s time goes, on one CUDA card.
+
+    python3 tools/dpk_forward_ablation.py [--out FILE]
+
+Builds ``ahsoka_tpu_torch/csrc/minplus_stream.cu`` as it is (``base``)
+and in variants that switch parts of the per-position work off by text
+edits of a copy of the source (one nvcc each, in parallel, into
+``build/dpk_ablation/``), then times each with CUDA events at shapes of
+``chip_smoke.py`` with the cluster size pinned.  It prints microseconds a
+position: the median of 9 calls in ms * 1000 / (P - 1).  Only ``base``
+computes the forward pass; it is held exactly against the plain version
+on the card.  The variants compute garbage, at the cost of what is left:
+
+- ``noremote``: each CTA stores its new costs into its own buffer only
+  (no distributed-shared-memory stores into its peers);
+- ``noremote_localbar``: and a CTA barrier in place of the per-position
+  cluster barrier (with the remote stores on, a CTA could leave while
+  peers still write into it, so ``localbar`` alone is not run);
+- ``nomloop``: the m-tile loop (tensor-core products and relaxations)
+  skipped at run time, its code and the B build kept;
+- ``nomloop_nobbuild``: and the B fragments zero instead of built;
+- ``all_off``: all of the above: what is left is the cp.async prefetch,
+  the lane reductions, the backpointer and cost stores and the barrier.
+
+The last line is one JSON object: the card's ``nvidia-smi`` name and
+power limit, and ``{variant: {shape: us a position}}``.  ``--out`` also
+writes it to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "ahsoka_tpu_torch", "csrc", "minplus_stream.cu")
+WORK = os.path.join(ROOT, "build", "dpk_ablation")
+
+# text edits of the source, as (old, new, occurrences); a false run-time
+# condition (switch costs are never below -1e38) keeps the m-tile loop's
+# code, and with it the B build, which a compile-time false would drop
+_NOREMOTE = [("cg::this_cluster().map_shared_rank(cnext, r)[t0 + lc] = v;",
+              "cnext[t0 + lc] = v;", 2)]
+_LOCALBAR = [("candidate row) visible to every CTA of the cluster\n"
+              "    if (G > 1)\n      cg::this_cluster().sync();\n"
+              "    else\n      __syncthreads();",
+              "candidate row) visible to every CTA of the cluster\n"
+              "    __syncthreads();", 1)]
+_NOMLOOP = [("if (sp < MT) load_a<K>",
+             "if (sp < MT && switch_cost < -1.0e38f) load_a<K>", 1),
+            ("for (int mt = sp; mt < MT; mt += SP) {",
+             "for (int mt = sp; mt < MT && switch_cost < -1.0e38f; "
+             "mt += SP) {", 1)]
+_NOBBUILD = [("build_b<K>(cprow, ccrow, counts, t, q, bfr[nt]);",
+              "for (int x = 0; x < L::KS; ++x) "
+              "bfr[nt][x][0] = bfr[nt][x][1] = 0u * t;", 1)]
+VARIANTS = {
+    "base": [],
+    "noremote": _NOREMOTE,
+    "noremote_localbar": _NOREMOTE + _LOCALBAR,
+    "nomloop": _NOMLOOP,
+    "nomloop_nobbuild": _NOMLOOP + _NOBBUILD,
+    "all_off": _NOREMOTE + _LOCALBAR + _NOMLOOP + _NOBBUILD,
+}
+# (name, ploidy, chains, positions, CTAs a chain)
+SHAPES = [("tetra_long/G16", 4, 1, 2048, 16),
+          ("tetra_long/G8", 4, 1, 2048, 8),
+          ("config3c/G4", 4, 20, 256, 4),
+          ("k5/G16", 5, 4, 64, 16),
+          ("k3_c1/G1", 3, 1, 300, 1),
+          ("k4_c300/G1", 4, 300, 56, 1)]
+
+
+def variant_source(edits) -> str:
+    with open(SRC) as fh:
+        text = fh.read()
+    for old, new, count in edits:
+        if text.count(old) != count:
+            raise RuntimeError(f"the source no longer holds {count} x "
+                               f"{old!r}: update the variant's edits")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all() -> dict:
+    """name -> loaded library, one nvcc per variant run at once."""
+    from ahsoka_tpu_torch.ops import _build
+
+    os.makedirs(WORK, exist_ok=True)
+    procs = {}
+    for name, edits in VARIANTS.items():
+        src = os.path.join(WORK, f"{name}.cu")
+        with open(src, "w") as fh:
+            fh.write(variant_source(edits))
+        lib = os.path.join(WORK, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        lib = ctypes.CDLL(path)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ahsoka_dpk_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, cf, cf, vp]
+        lib.ahsoka_dpk_forward.restype = ci
+        libs[name] = lib
+    return libs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the JSON result here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("dpk_forward_ablation: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from ahsoka_tpu_torch.ops import minplus_stream as ms
+    from ahsoka_tpu_torch.ops.minplus import minplus_forward_ref
+    from ahsoka_tpu_torch.thread.states import full_state_counts
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    libs = build_all()
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    result = {name: {} for name in VARIANTS}
+    for shape, k, C, P, G in SHAPES:
+        counts = full_state_counts(k)
+        S = counts.shape[0]
+        arrays = cs.random_dp_batch(C, P, seed=cs._seed(k, C, P), ploidy=k)
+        cand, node = cs._node_costs(arrays, dev, k)
+        planes, packed = ms._device_tables(counts, k, dev)
+        bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
+        fin = torch.empty((C, S), dtype=torch.float32, device=dev)
+        for name, lib in libs.items():
+            def run(lib=lib):
+                err = lib.ahsoka_dpk_forward(
+                    cand.data_ptr(), node.data_ptr(), planes.data_ptr(),
+                    packed.data_ptr(), bp.data_ptr(), fin.data_ptr(), C, P,
+                    S, 2 * k, G, cs.SWITCH, cs.AFFINE,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} at {shape}: CUDA error {err}")
+
+            if name == "base":
+                run()
+                fin_r, bp_r = minplus_forward_ref(
+                    cand, node, counts, ploidy=k, switch_cost=cs.SWITCH,
+                    affine_cost=cs.AFFINE)
+                if not (torch.equal(fin, fin_r) and torch.equal(bp, bp_r)):
+                    raise AssertionError(f"base != plain at {shape}")
+            result[name][shape] = cs._median_ms(run, 9) * 1e3 / (P - 1)
+    card = cs.nvidia_smi_line()
+    print(card)
+    for name, row in result.items():
+        print(f"{name:18s} us a position: " + "; ".join(
+            f"{shape} {us:.2f}" for shape, us in row.items()))
+    line = json.dumps({"card": card, "us_per_position": result})
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
