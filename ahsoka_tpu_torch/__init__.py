@@ -10,8 +10,9 @@ to PyTorch, with hand-written CUDA kernels for the threading DP:
                   or banded (large chains)            score/banded.py   (torch)
             ──> cluster editing, dense or sparse      cluster/ (native C++)
             ──> threading DP                          thread/dp_torch.py
-                  diploid forward + backtrace         csrc/minplus_diploid.cu
-                  ploidy 1, 3-5                       csrc/minplus_stream.cu
+                  forward, ploidy 1-2: a warp a chain csrc/minplus_stream.cu
+                  forward, ploidy 3-5: CTA clusters   csrc/minplus_stream.cu
+                  backtrace, ploidy 1-5               csrc/minplus_stream.cu
                   beam-pruned (ploidy 6)              thread/dp_beam.py (torch)
             ──> emission                              emit/ (host)
 

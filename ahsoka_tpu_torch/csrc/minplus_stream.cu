@@ -1,17 +1,24 @@
-// General-ploidy haplotype-threading DP on Hopper (sm_90a): min-plus
+// Haplotype-threading DP on Hopper (sm_90a), every ploidy 1-5: min-plus
 // forward pass over the multiset state space, and its backtrace.
 //
-// Replaces the TPU Pallas kernels that compute this forward pass:
-//   dpk_forward   <- _stream_kernel_ge (ahsoka_tpu/ops/minplus_stream.py,
-//                    minplus_forward_streamed, ge=True: the default)
-//                 <- _stream_kernel    (same file, ge=False)
-//                 <- _dp_kernel        (ahsoka_tpu/ops/minplus.py,
-//                    minplus_forward: all positions resident in VMEM)
-//   dpk_backtrace <- the reverse XLA scan of thread_batch_pallas_streamed
-//                    (ahsoka_tpu/thread/dp_pallas.py:127-133)
-// The three Pallas bodies differ only in how they stage memory on a TPU
-// (MXU GE-matmul or M min-and-add sweeps for the intersection; VMEM
-// resident or HBM streamed); one kernel covers all three.
+// Replaces the TPU kernels that compute them:
+//   dpk_forward      <- _stream_kernel_ge (ahsoka_tpu/ops/minplus_stream.py,
+//                       minplus_forward_streamed, ge=True: the default)
+//                    <- _stream_kernel    (same file, ge=False)
+//                    <- _dp_kernel        (ahsoka_tpu/ops/minplus.py,
+//                       minplus_forward: all positions resident in VMEM)
+//                       k >= 3 (S = 56, 330, 2002)
+//   dpk_forward_warp <- _dp2_kernel (ahsoka_tpu/ops/minplus_diploid.py,
+//                       minplus_forward_diploid_raw), and the same Pallas
+//                       bodies at k = 1: k <= 2 (S = 2, 10)
+//   dpk_backtrace    <- _bt2_kernel (ahsoka_tpu/ops/minplus_diploid.py,
+//                       backtrace_diploid) and the reverse XLA scan of
+//                       thread_batch_pallas_streamed
+//                       (ahsoka_tpu/thread/dp_pallas.py:127-133)
+// The Pallas bodies differ in how they stage memory on a TPU (MXU
+// GE-matmul or M min-and-add sweeps for the intersection; VMEM resident
+// or HBM streamed; 1024 diploid chains over an [8, 128] vreg); the
+// function is one, and the kernels here split it by state count only.
 //
 // State s is a multiset of k candidate slots out of M = 2k, given by its
 // slot counts counts[s][0..M-1] (thread/states.py full_state_counts);
@@ -84,9 +91,52 @@
 // * With several CTAs an SM (many chains), CTAs run fewer warps so that
 //   every chain is resident at once, as far as shared memory lets that
 //   many CTAs share an SM (at k = 5 one CTA fills it).
-// k <= 2 (S = 2, 10) runs dpk_forward_small instead: one warp a chain on
-// the CUDA cores, which measured faster there than 16 x 8 tensor-core
-// tiles of mostly padding.
+//
+// k <= 2 (S = 2, 10) runs dpk_forward_warp instead (a 16 x 8 tensor-core
+// tile would be mostly padding).  What bounds it: nothing of the card's
+// rates (config4's group, C=1000, P=56, is 0.0016 ms of bytes); one
+// chain is P - 1 dependent positions, so the time is P times the latency
+// of one position.  The design keeps that latency to the carry's own
+// dependency chain:
+// * One warp a chain (a CTA of one warp, so many-chain groups spread over
+//   every SM and no CTA barrier exists).  Lane t < S holds cost[t] in a
+//   register.
+// * Tiles of T positions of the chain's candidates [T, M] and node costs
+//   [T, S] (contiguous rows) are staged into shared memory with cp.async,
+//   double-buffered: tile i+1 is in flight while tile i is scanned.  No
+//   global load is left on the per-position path.
+// * Everything that does not depend on the carry is done a tile at a
+//   time, in parallel over the tile's (position, destination) pairs: the
+//   eq masks, mapped[] and each source's switch count sw = k - inter,
+//   packed 2 bits a source (20 bits at S = 10) into one word a pair.
+// * A position is then: S shuffles of the previous costs, total_s =
+//   cost_s + trans[sw_s] (a (k+1)-entry table built once; one rounding),
+//   a balanced (value, index) minimum that lets the lower index win every
+//   tie (equal to the strict-< scan over ascending s), and the staged
+//   node cost added.  Only shuffles synchronise the lanes.
+// * Backpointers go to a shared tile and leave as one coalesced store of
+//   T * S words a tile.
+//
+// dpk_backtrace (every k): a CTA a chain.  The chain's backpointer rows
+// [j0, j1) are one contiguous [j1 - j0, S] block; tiles of rows stream in
+// from the end backwards with cp.async into a double buffer sized to
+// shared memory, the tile is walked there (a shared-memory load a step
+// instead of a dependent global one), and the CTA stores the tile's
+// states coalesced.  At S <= 10 the walk of a tile is split into 32
+// segments: each lane maps all S states at its segment's top through the
+// segment (S independent walks), one thread chains the 32 maps, and each
+// lane walks its segment again from its entry state.  At larger S one
+// thread walks the tile: S walks a lane cost more than they save, and
+// segments of S = 56 rows would share banks 8 lanes to one.  Bound: the P - 1 backpointers the walk follows; the
+// tiles move all (P - 1) * S of them, which sets the time once the walk
+// is short.
+//
+// Tiles are staged with cp.async and not TMA bulk copies: a bulk copy
+// needs 16-byte aligned addresses and sizes, and a chain's rows are 40
+// bytes at S = 10, 8 at M = 2 and 4 * S in the backtrace.  The staging
+// copies 16-byte chunks where source and destination can be aligned
+// alike (the destination is offset by the source's address mod 16) and
+// single words at the ragged ends.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -99,11 +149,18 @@ namespace {
 
 constexpr int kFwdMaxWarps = 16;     // forward: at most 512 threads a CTA
 constexpr int kFwdTargetWarps = 16;  // split the source range up to this
-constexpr int kSmallThreads = 32;    // k <= 2: one warp, thread per state
 constexpr int kAhead = 4;            // positions prefetched ahead
 constexpr int kNodeRing = kAhead + 1;
 constexpr int kCandRing = kAhead + 2;
-constexpr int kBtThreads = 128;      // backtrace: chains per block
+constexpr int kWarpTileMax = 128;    // k <= 2: positions a staged tile
+constexpr int kBtThreads = 128;      // backtrace: threads a chain
+constexpr int kBtRowsMax = 1024;     // backtrace: rows a staged tile
+constexpr int kBtSegments = 32;      // backtrace: segments of a tile's walk
+constexpr int kBtSegStates = 10;     // ... at S up to this
+// shared memory the k <= 2 forward and the backtrace let the CTAs of one
+// SM take together, so that every chain of a launch is resident at once
+constexpr size_t kSmemPerSm = 200 * 1024;
+constexpr size_t kSmemPerCta = 227 * 1024;
 
 // Compile-time layout of one ploidy k (M = 2k slots).
 template <int K>
@@ -165,6 +222,49 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most kAhead - 1 groups (the rows after the next) pend
 __device__ __forceinline__ void cp_async_wait_next() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Words of a staging buffer for n words: 3 words of slack for the
+// alignment offset, a multiple of 4 so that the next buffer stays
+// 16-byte aligned.
+__host__ __device__ constexpr int stage_words(int n) {
+  return (n + 3 + 3) / 4 * 4;
+}
+
+// Where word 0 of a staged copy of ``src`` lands in its buffer: the
+// buffer is offset by the source's address mod 16, so that source and
+// destination are 16-byte aligned at the same words.
+__device__ __forceinline__ int stage_offset(const void* src) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+}
+
+// Copy n words from src (4-byte aligned) into buf + stage_offset(src)
+// (buf 16-byte aligned, stage_words(n) long) with cp.async, threads
+// lane = 0..nthr-1 sharing the copies: 16-byte chunks in the middle,
+// single words at the ragged ends.  The caller commits the group.
+__device__ __forceinline__ void stage_async(void* buf, const void* src,
+                                            int n, int lane, int nthr) {
+  const int off = stage_offset(src);
+  int* dst = static_cast<int*>(buf) + off;
+  const int* s = static_cast<const int*>(src);
+  const int head = min(n, (4 - off) & 3);
+  const int chunks = (n - head) / 4;
+  const int tail = head + 4 * chunks;
+  if (lane < head) cp_async4(dst + lane, s + lane);
+  for (int i = lane; i < chunks; i += nthr)
+    cp_async16(dst + head + 4 * i, s + head + 4 * i);
+  for (int i = tail + lane; i < n; i += nthr) cp_async4(dst + i, s + i);
 }
 
 // d += a * b on the int8 tensor cores (m16n8k32, s32 accumulators)
@@ -488,104 +588,357 @@ dpk_forward(const int* __restrict__ cand,          // [C, P, M]
     final_cost[c * S + t0 + i] = cfin[t0 + i];
 }
 
-// k <= 2 (S = 2, 10): one warp per chain, a thread per destination state
-// and a serial loop over the sources on the CUDA cores, slot counts as
-// bytes four to a word.  At these sizes the tensor-core path pays for
-// 16 x 8 tiles of mostly padding and a longer per-position chain.
+// Layout of the shared memory of one k <= 2 chain at tile size T, in
+// words: two staging buffers each of candidates and node costs, the
+// transition costs of every (position, destination, source) of the tile
+// (a row of SP >= S floats a pair), the eq bits of each position, the
+// tile's backpointers, the candidate row before the tile.
+struct WarpTiles {
+  int cand, node, trans, eq, bp, prev, words;
+};
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ inline WarpTiles warp_tiles(int T, int M, int S) {
+  WarpTiles w{};
+  w.cand = stage_words(T * M);
+  w.node = stage_words(T * S);
+  w.trans = 2 * w.cand + 2 * w.node;
+  w.eq = w.trans + T * S * round4(S);
+  w.bp = w.eq + round4(T);
+  w.prev = w.bp + round4(T * S);
+  w.words = w.prev + 4;
+  return w;
+}
+
 template <int K>
-__global__ void __launch_bounds__(kSmallThreads)
-dpk_forward_small(const int* __restrict__ cand,         // [C, P, M]
-                  const float* __restrict__ node,       // [C, P, S]
-                  const unsigned* __restrict__ counts,  // [S, 1] byte-packed
-                  int* __restrict__ bp,                 // [C, P, S]
-                  float* __restrict__ final_cost,       // [C, S]
-                  int P, int S, float switch_cost, float affine_cost) {
-  constexpr int M = 2 * K;
-  static_assert(M <= 4, "one count word a state");
-  __shared__ unsigned cnt[kSmallThreads];
-  __shared__ float cost[2][kSmallThreads];
-  __shared__ int eqm[2][M];
-  const int t = threadIdx.x;
-  const size_t PS = static_cast<size_t>(P) * S;
+struct Small {
+  static constexpr int M = 2 * K;
+  static constexpr int S = K == 1 ? 2 : 10;  // C(3k - 1, k)
+  static constexpr int SP = (S + 3) / 4 * 4;  // a transition row, floats
+  static constexpr unsigned SLOTS = (1u << M) - 1;
+  static_assert(K == 1 || K == 2, "the one-warp forward takes k <= 2");
+};
+
+// The min-plus step of destination lane t at one position: cost_s of
+// every source from its lane plus the staged transition cost, then the
+// minimum with the lowest s among equal totals.  A balanced reduction:
+// every source left of a merge has a lower index than every one right of
+// it, so strict < keeps the first minimum.
+template <int K>
+__device__ __forceinline__ void minplus_step(float cost, const float* trow,
+                                             float& best, int& bidx) {
+  constexpr int S = Small<K>::S, SP = Small<K>::SP;
+  float tr[SP];
+#pragma unroll
+  for (int q = 0; q < SP / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(trow)[q];
+    tr[4 * q] = f.x;
+    tr[4 * q + 1] = f.y;
+    tr[4 * q + 2] = f.z;
+    tr[4 * q + 3] = f.w;
+  }
+  float v[S];
+  int ix[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    v[s] = __fadd_rn(__shfl_sync(0xffffffffu, cost, s), tr[s]);
+    ix[s] = s;
+  }
+#pragma unroll
+  for (int step = 1; step < S; step <<= 1)
+#pragma unroll
+    for (int a = 0; a + step < S; a += 2 * step)
+      if (v[a + step] < v[a]) {
+        v[a] = v[a + step];
+        ix[a] = ix[a + step];
+      }
+  best = v[0];
+  bidx = ix[0];
+}
+
+template <int K>
+__global__ void __launch_bounds__(32)
+dpk_forward_warp(const int* __restrict__ cand,         // [C, P, M]
+                 const float* __restrict__ node,       // [C, P, S]
+                 const unsigned* __restrict__ counts,  // [S] byte-packed
+                 int* __restrict__ bp,                 // [C, P, S]
+                 float* __restrict__ final_cost,       // [C, S]
+                 int P, int T, float switch_cost, float affine_cost) {
+  constexpr int M = Small<K>::M, S = Small<K>::S, SP = Small<K>::SP;
+  constexpr unsigned SLOTS = Small<K>::SLOTS;
+  extern __shared__ __align__(16) int smem_w[];
+  // the state's threshold planes: bit (u - 1) * M + m is
+  // [counts[s][m] >= u], so that sum_m min(a[m], b[m]) is the popcount of
+  // the planes' AND for 0 <= a, b <= k
+  __shared__ unsigned planes_s[S];
+  const WarpTiles L = warp_tiles(T, M, S);
+  int* cand_buf = smem_w;                                    // [2][L.cand]
+  float* node_buf = reinterpret_cast<float*>(smem_w + 2 * L.cand);
+  float* trans_s = reinterpret_cast<float*>(smem_w + L.trans);  // [T*S][SP]
+  unsigned* eq_s = reinterpret_cast<unsigned*>(smem_w + L.eq);  // [T]
+  int* bp_s = smem_w + L.bp;                                 // [T * S]
+  int* prev_s = smem_w + L.prev;                             // [M]
+  const int lane = threadIdx.x;
   const size_t c = blockIdx.x;
   const int* cand_c = cand + c * P * M;
-  const float* node_c = node + c * PS;
-  int* bp_c = bp + c * PS;
-  const float af1 = __fmul_rn(affine_cost, 1.0f);
-  const float af0 = __fmul_rn(affine_cost, 0.0f);
-  auto eq_mask = [&](int j, int mp) {
-    const int prev = cand_c[(j - 1) * M + mp];
-    int mask = 0;
-    if (prev >= 0)
-      for (int mc = 0; mc < M; ++mc)
-        if (cand_c[j * M + mc] == prev) mask |= 1 << mc;
-    return mask;
-  };
-  if (t < S) {
-    cnt[t] = counts[t];
-    cost[0][t] = node_c[t];
-    bp_c[t] = 0;
-  }
-  if (P > 1 && t < M) eqm[1][t] = eq_mask(1, t);
-  __syncthreads();
-  int ct[M];
+  const float* node_c = node + c * P * S;
+  int* bp_c = bp + c * P * S;
+  if (lane < S) {
+    const unsigned w = __ldg(counts + lane);
+    unsigned pl = 0;
 #pragma unroll
-  for (int m = 0; m < M; ++m)
-    ct[m] = t < S ? static_cast<int>((cnt[t] >> (8 * m)) & 0xffu) : 0;
-  for (int j = 1; j < P; ++j) {
-    const float* cprev = cost[(j - 1) & 1];
-    const int* em = eqm[j & 1];
-    if (j + 1 < P && t < M) eqm[(j + 1) & 1][t] = eq_mask(j + 1, t);
-    if (t < S) {
-      int mapped[M];
+    for (int u = 1; u <= K; ++u)
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (((w >> (8 * m)) & 0xffu) >= static_cast<unsigned>(u))
+          pl |= 1u << ((u - 1) * M + m);
+    planes_s[lane] = pl;
+  }
+  float tr[K + 1];                      // transition cost by switch count
+#pragma unroll
+  for (int u = 0; u <= K; ++u)
+    tr[u] = __fadd_rn(__fmul_rn(switch_cost, static_cast<float>(u)),
+                      __fmul_rn(affine_cost, u > 0 ? 1.0f : 0.0f));
+  auto stage_tile = [&](int i) {
+    const int j0 = i * T, n = min(T, P - j0), b = i & 1;
+    stage_async(cand_buf + b * L.cand, cand_c + static_cast<size_t>(j0) * M,
+                n * M, lane, 32);
+    stage_async(node_buf + b * L.node, node_c + static_cast<size_t>(j0) * S,
+                n * S, lane, 32);
+    cp_async_commit();
+  };
+
+  const int ntiles = (P + T - 1) / T;
+  stage_tile(0);
+  float cost = 0.0f;
+  for (int i = 0; i < ntiles; ++i) {
+    const int j0 = i * T, n = min(T, P - j0), b = i & 1;
+    const int* ct = cand_buf + b * L.cand +
+                    stage_offset(cand_c + static_cast<size_t>(j0) * M);
+    const float* nt = node_buf + b * L.node +
+                      stage_offset(node_c + static_cast<size_t>(j0) * S);
+    cp_async_wait<0>();
+    __syncwarp();
+    // eq bits of each position: bit mp * M + mc where previous slot mp
+    // carries current slot mc's (real) cluster
+    for (int jj = lane; jj < n; jj += 32) {
+      const int* prow = jj > 0 ? ct + (jj - 1) * M : prev_s;
+      const int* crow = ct + jj * M;
+      unsigned e = 0;
 #pragma unroll
       for (int mp = 0; mp < M; ++mp) {
-        int v = 0;
+        const int pv = prow[mp];
 #pragma unroll
-        for (int mc = 0; mc < M; ++mc) v += ((em[mp] >> mc) & 1) * ct[mc];
-        mapped[mp] = v;
+        for (int mc = 0; mc < M; ++mc)
+          if (pv >= 0 && crow[mc] == pv) e |= 1u << (mp * M + mc);
       }
-      float best = 0.0f;
-      int best_s = 0;
-      for (int s = 0; s < S; ++s) {
-        const unsigned w = cnt[s];
-        int inter = 0;
-#pragma unroll
-        for (int mp = 0; mp < M; ++mp)
-          inter += min(static_cast<int>((w >> (8 * mp)) & 0xffu), mapped[mp]);
-        const int sw = K - inter;
-        const float trans =
-            __fadd_rn(__fmul_rn(switch_cost, static_cast<float>(sw)),
-                      sw > 0 ? af1 : af0);
-        const float total = __fadd_rn(cprev[s], trans);
-        if (s == 0 || total < best) {
-          best = total;
-          best_s = s;
-        }
-      }
-      const size_t row = static_cast<size_t>(j) * S;
-      cost[j & 1][t] = __fadd_rn(best, node_c[row + t]);
-      bp_c[row + t] = best_s;
+      eq_s[jj] = e;
     }
-    __syncthreads();
+    __syncwarp();
+    // transition costs of every (position, destination) pair of the
+    // tile: mapped[mp] = sum_mc counts[t][mc] eq[mp][mc] is the popcount
+    // of t's planes under the eq row repeated over the k planes; its
+    // threshold planes against each source's give inter, sw = k - inter
+    for (int x = lane; x < n * S; x += 32) {
+      const int jj = x / S, t = x - jj * S;
+      const unsigned e = eq_s[jj], at = planes_s[t];
+      unsigned bpl = 0;
+#pragma unroll
+      for (int mp = 0; mp < M; ++mp) {
+        unsigned row = (e >> (mp * M)) & SLOTS;
+#pragma unroll
+        for (int u = 1; u < K; ++u) row |= row << M;
+        const int mapped = __popc(row & at);
+#pragma unroll
+        for (int u = 1; u <= K; ++u)
+          if (mapped >= u) bpl |= 1u << ((u - 1) * M + mp);
+      }
+      float row_tr[SP];
+#pragma unroll
+      for (int s = 0; s < SP; ++s) {
+        const int sw = K - (s < S ? __popc(planes_s[s] & bpl) : K);
+        float v = tr[0];
+#pragma unroll
+        for (int u = 1; u <= K; ++u)
+          if (sw == u) v = tr[u];
+        row_tr[s] = v;
+      }
+      float4* dst = reinterpret_cast<float4*>(trans_s + x * SP);
+#pragma unroll
+      for (int q = 0; q < SP / 4; ++q)
+        dst[q] = make_float4(row_tr[4 * q], row_tr[4 * q + 1],
+                             row_tr[4 * q + 2], row_tr[4 * q + 3]);
+    }
+    __syncwarp();
+    if (lane < M) prev_s[lane] = ct[(n - 1) * M + lane];
+    if (i + 1 < ntiles) stage_tile(i + 1);
+    __syncwarp();
+    // the serial scan: registers, shuffles and the staged tile only
+    int jj = 0;
+    if (j0 == 0) {
+      if (lane < S) {
+        cost = nt[lane];
+        bp_s[lane] = 0;
+      }
+      jj = 1;
+    }
+    const int tl = lane < S ? lane : 0;   // lanes >= S shadow lane 0
+#pragma unroll 4
+    for (; jj < n; ++jj) {
+      const float nd = nt[jj * S + tl];
+      float best;
+      int bidx;
+      minplus_step<K>(cost, trans_s + (jj * S + tl) * SP, best, bidx);
+      cost = __fadd_rn(best, nd);
+      if (lane < S) bp_s[jj * S + lane] = bidx;
+    }
+    __syncwarp();
+    int* bp_tile = bp_c + static_cast<size_t>(j0) * S;
+    for (int x = lane; x < n * S; x += 32) bp_tile[x] = bp_s[x];
   }
-  if (t < S) final_cost[c * S + t] = cost[(P - 1) & 1][t];
+  if (lane < S) final_cost[c * S + lane] = cost;
+}
+
+// Shared memory of the backtrace at R rows a tile: two staging buffers
+// of R * S backpointers, the tile's R states, and for a segmented walk
+// (G > 1) each segment's state map and entry state.
+__host__ __device__ inline size_t bt_smem_bytes(int R, int S, int G) {
+  return sizeof(int) *
+         (2 * static_cast<size_t>(stage_words(R * S)) + round4(R) +
+          (G > 1 ? static_cast<size_t>(G) * S + G : 0));
 }
 
 __global__ void __launch_bounds__(kBtThreads)
 dpk_backtrace(const int* __restrict__ bp,           // [C, P, S]
               const int* __restrict__ final_state,  // [C]
               int* __restrict__ states,             // [C, P]
-              int C, int P, int S) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int* bp_c = bp + static_cast<size_t>(c) * P * S;
-  int* st_c = states + static_cast<size_t>(c) * P;
-  int st = final_state[c];
-  for (int j = P - 1; j >= 0; --j) {
-    st_c[j] = st;
-    if (j > 0) st = bp_c[static_cast<size_t>(j) * S + st];
+              int P, int S, int R, int G) {
+  extern __shared__ __align__(16) int smem_b[];
+  const int bw = stage_words(R * S);
+  int* st_tile = smem_b + 2 * bw;                   // [R]
+  int* seg_map = st_tile + round4(R);               // [G][S]
+  int* seg_in = seg_map + G * S;                    // [G]
+  const int tid = threadIdx.x;
+  const size_t c = blockIdx.x;
+  const int* bp_c = bp + c * P * S;
+  int* st_c = states + c * P;
+  // tile i holds rows [j0, j1) = [P - (i + 1) R, P - i R) clipped at 0;
+  // row 0's backpointers are never followed, so a tile stages rows
+  // [max(j0, 1), j1)
+  auto rows = [&](int i, int& j0, int& j1) {
+    j1 = P - i * R;
+    j0 = j1 - R > 0 ? j1 - R : 0;
+  };
+  auto stage_tile = [&](int i) {
+    int j0, j1;
+    rows(i, j0, j1);
+    const int jl = j0 > 1 ? j0 : 1;
+    if (j1 > jl)
+      stage_async(smem_b + (i & 1) * bw, bp_c + static_cast<size_t>(jl) * S,
+                  (j1 - jl) * S, tid, kBtThreads);
+    cp_async_commit();
+  };
+  const int ntiles = (P + R - 1) / R;
+  int st = final_state[c];                          // state at row j1 - 1
+  stage_tile(0);
+  for (int i = 0; i < ntiles; ++i) {
+    int j0, j1;
+    rows(i, j0, j1);
+    const int jl = j0 > 1 ? j0 : 1;
+    if (i + 1 < ntiles) {
+      stage_tile(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int* tile = smem_b + (i & 1) * bw +
+                      stage_offset(bp_c + static_cast<size_t>(jl) * S);
+    // state at row j - 1 from the state x at row j >= 1
+    auto step = [&](int j, int x) { return tile[(j - jl) * S + x]; };
+    if (G == 1) {
+      // one thread walks the tile: a row pointer stepped down, so that a
+      // step is one address add and one shared-memory load
+      if (tid == 0) {
+        const int* row = tile + (j1 - 1 - jl) * S;
+        int* out = st_tile + (j1 - 1 - j0);
+#pragma unroll 4
+        for (int j = j1 - 1; j >= jl; --j) {
+          *out-- = st;
+          st = row[st];
+          row -= S;
+        }
+        if (j0 == 0) st_tile[0] = st;
+      }
+    } else {
+      // segmented: segment g holds rows [j0 + g * seg, j0 + (g+1) seg)
+      // Each lane maps every state at its segment's top row through the
+      // segment (S walks at once), one thread chains the maps from the
+      // tile's top, then each lane walks its segment from its entry.
+      // an odd segment length puts the lanes' rows (seg * S words apart,
+      // S even) on different banks: at most 2 lanes share one
+      const int seg = (j1 - j0 + G - 1) / G | 1;
+      const int a = j0 + tid * seg, b = min(j1, a + seg);
+      if (tid < G) {
+        // 16 of the S walks at a time, in registers
+        for (int e0 = 0; e0 < S; e0 += 16) {
+          int x[16];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) x[q] = e0 + q < S ? e0 + q : 0;
+          for (int j = b - 1; j >= a && j > 0; --j) {
+            const int* row = tile + (j - jl) * S;
+#pragma unroll
+            for (int q = 0; q < 16; ++q) x[q] = row[x[q]];
+          }
+#pragma unroll
+          for (int q = 0; q < 16; ++q)
+            if (e0 + q < S) seg_map[tid * S + e0 + q] = x[q];
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        for (int g = G - 1; g >= 0; --g) {
+          seg_in[g] = st;
+          st = seg_map[g * S + st];
+        }
+      }
+      __syncthreads();
+      if (tid < G) {
+        int x = seg_in[tid];
+        for (int j = b - 1; j >= a; --j) {
+          st_tile[j - j0] = x;
+          if (j > 0) x = step(j, x);
+        }
+      }
+    }
+    __syncthreads();
+    for (int x = tid; x < j1 - j0; x += kBtThreads) st_c[j0 + x] = st_tile[x];
   }
+}
+
+// streaming multiprocessors of the current device (asked once a device)
+cudaError_t sm_count(int* sms) {
+  static int known[64] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 64 && known[device] > 0) {
+    *sms = known[device];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess && device < 64) known[device] = *sms;
+  return e;
+}
+
+// allow ``smem`` bytes of dynamic shared memory (needed above 48 KB)
+template <typename F>
+cudaError_t allow_smem(F kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int K>
@@ -623,12 +976,26 @@ int launch_forward(const void* cand, const void* node, const void* planes,
                    int P, int S, int G, float switch_cost, float affine_cost,
                    cudaStream_t stream) {
   if constexpr (K <= 2) {
-    if (G != 1 || S > kSmallThreads)
+    constexpr int M = Small<K>::M;
+    if (G != 1 || S != Small<K>::S)
       return static_cast<int>(cudaErrorInvalidValue);
-    dpk_forward_small<K><<<C, kSmallThreads, 0, stream>>>(
+    // the largest tile (down to 32 positions) at which the chains' warps
+    // each SM has to hold all fit its shared memory at once
+    int sms = 0;
+    cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t per_sm = (static_cast<size_t>(C) + sms - 1) / sms;
+    int T = P < kWarpTileMax ? P : kWarpTileMax;
+    while (T > 32 && per_sm * sizeof(int) * warp_tiles(T, M, S).words >
+                         kSmemPerSm)
+      T = (T + 1) / 2;
+    const size_t smem = sizeof(int) * warp_tiles(T, M, S).words;
+    e = allow_smem(dpk_forward_warp<K>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dpk_forward_warp<K><<<C, 32, smem, stream>>>(
         static_cast<const int*>(cand), static_cast<const float*>(node),
         static_cast<const unsigned*>(counts), static_cast<int*>(bp),
-        static_cast<float*>(final_cost), P, S, switch_cost, affine_cost);
+        static_cast<float*>(final_cost), P, T, switch_cost, affine_cost);
     return static_cast<int>(cudaGetLastError());
   } else {
     // CTAs each SM holds: as many as keep all C*G CTAs resident at once,
@@ -727,15 +1094,29 @@ int ahsoka_dpk_max_clusters(int M, int S, int G, int* out) {
   }
 }
 
+// Backtrace of C chains: a CTA a chain, R rows a staged tile, R as large
+// as lets the CTAs each SM has to hold fit its shared memory at once; a
+// segmented walk (G = 32 segments) where S <= kBtSegStates and a tile
+// has at least 2G rows.
 int ahsoka_dpk_backtrace(const void* bp, const void* final_state,
                          void* states, int C, int P, int S, void* stream) {
-  if (C > 0 && P > 0) {
-    const int blocks = (C + kBtThreads - 1) / kBtThreads;
-    dpk_backtrace<<<blocks, kBtThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(bp), static_cast<const int*>(final_state),
-        static_cast<int*>(states), C, P, S);
-  }
+  if (C <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t per_sm = (static_cast<size_t>(C) + sms - 1) / sms;
+  size_t budget = kSmemPerSm / per_sm;
+  if (budget > kSmemPerCta) budget = kSmemPerCta;
+  const int G = S <= kBtSegStates ? kBtSegments : 1;
+  int R = P < kBtRowsMax ? P : kBtRowsMax;
+  while (R > 1 && bt_smem_bytes(R, S, G) > budget) R = (R + 1) / 2;
+  const int g = R >= 2 * G ? G : 1;
+  const size_t smem = bt_smem_bytes(R, S, g);
+  e = allow_smem(dpk_backtrace, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dpk_backtrace<<<C, kBtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bp), static_cast<const int*>(final_state),
+      static_cast<int*>(states), P, S, R, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,10 @@ wrapper appends.  A CUDA tensor launches the hand-written kernel of
 ``csrc/minplus_stream.cu`` (built at first use) or raises; a CPU tensor
 takes the plain version (``ops/minplus.py``).  Nothing falls back from one
 to the other.  Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, and ``KERNEL_LAUNCHES`` counts them by CUDA
+kernel: ``dpk_forward_warp`` (ploidy <= SMALL_PLOIDY: one warp a chain),
+``dpk_forward`` (ploidy 3-5) and ``dpk_backtrace`` (every ploidy).  The
+diploid wrappers (``ops/minplus_diploid.py``) launch the same kernels.
 
 The host half of the CUDA forward lives here: the int8 0/1 plane table
 its tensor cores multiply (``ge_planes``) and the CTAs a chain spreads
@@ -40,14 +43,17 @@ import torch
 
 from ahsoka_tpu_torch.ops import _build
 from ahsoka_tpu_torch.ops.minplus import backtrace_ref, minplus_forward_ref
-from ahsoka_tpu_torch.ops.minplus_diploid import (_check, _check_launch,
-                                                  _route)
 
 _LIB = "minplus_stream"
 MAX_PLOIDY = 5                   # the build instantiates k = 1..5
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs a chain may spread over
 MIN_CTA_CELLS = 4096             # (source, destination) cells a CTA keeps
 SMALL_PLOIDY = 2                 # k <= 2: one warp a chain, CUDA cores
+WARP_TILE = 128                  # k <= 2: positions a staged tile (at most;
+                                 # smaller when many chains share an SM)
+# CUDA launches of each kernel of csrc/minplus_stream.cu
+KERNEL_LAUNCHES = {"dpk_forward_warp": 0, "dpk_forward": 0,
+                   "dpk_backtrace": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -66,6 +72,37 @@ def _lib() -> ctypes.CDLL:
         lib.ahsoka_cuda_error_string.restype = ctypes.c_char_p
         lib._ahsoka_typed = True
     return lib
+
+
+def _check_launch(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.ahsoka_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, last=None):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got "
+                         f"{tuple(t.shape)}")
+    if last is not None and t.shape[-1] != last:
+        raise ValueError(f"{name} needs last dim {last}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _route(*tensors) -> str:
+    """'cpu' or 'cuda' for a set of tensors on one device; raises for
+    mixed or other devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
 
 
 def packed_counts(counts_table) -> np.ndarray:
@@ -196,15 +233,16 @@ def minplus_forward_streamed(candidates: torch.Tensor,
     C, P, _ = candidates.shape
     G = cluster_size(C, S, ploidy, candidates.device) if C and P else 1
     return _forward(candidates, node_costs, counts, ploidy, G, switch_cost,
-                    affine_cost)
+                    affine_cost, caller=minplus_forward_streamed)
 
 
 def _forward(candidates: torch.Tensor, node_costs: torch.Tensor,
              counts: np.ndarray, ploidy: int, G: int, switch_cost: float,
-             affine_cost: float):
+             affine_cost: float, caller=None):
     """The CUDA forward kernel at G CTAs a chain (one of CLUSTER_SIZES; 1
-    at ploidy <= SMALL_PLOIDY), on checked CUDA tensors and the [S, M]
-    counts table."""
+    at ploidy <= SMALL_PLOIDY, where ``dpk_forward_warp`` runs), on
+    checked CUDA tensors and the [S, M] counts table.  A launch counts in
+    KERNEL_LAUNCHES and in ``caller.launches`` (the public wrapper)."""
     if G not in (CLUSTER_SIZES if ploidy > SMALL_PLOIDY else (1,)):
         raise ValueError(f"ploidy {ploidy} cannot run {G} CTAs a chain")
     if not (candidates.is_cuda and node_costs.is_cuda):
@@ -225,24 +263,44 @@ def _forward(candidates: torch.Tensor, node_costs: torch.Tensor,
             candidates.data_ptr(), node_costs.data_ptr(), planes.data_ptr(),
             packed.data_ptr(), bp.data_ptr(), fin.data_ptr(), C, P, S, M, G,
             float(switch_cost), float(affine_cost), stream)
-        _check_launch(lib, err, f"dpk_forward (G={G})")
-        minplus_forward_streamed.launches += 1
+        kernel = ("dpk_forward_warp" if ploidy <= SMALL_PLOIDY
+                  else "dpk_forward")
+        _check_launch(lib, err, f"{kernel} (G={G})")
+        KERNEL_LAUNCHES[kernel] += 1
+        if caller is not None:
+            caller.launches += 1
         return fin, bp
 
 
 minplus_forward_streamed.launches = 0
 
 
-def backtrace_streamed(backptrs: torch.Tensor,
-                       final_state: torch.Tensor) -> torch.Tensor:
-    """states [C, P] from backpointers and the final state of each chain."""
-    _check(backptrs, "backptrs", torch.int32, 3)
+def check_backtrace_args(backptrs: torch.Tensor, final_state: torch.Tensor,
+                         S=None) -> str:
+    """Check a backtrace's arguments; 'cpu' or 'cuda'."""
+    _check(backptrs, "backptrs", torch.int32, 3, S)
     _check(final_state, "final_state", torch.int32, 1)
     if final_state.shape[0] != backptrs.shape[0]:
         raise ValueError(f"final_state {tuple(final_state.shape)} does not "
                          f"match backptrs {tuple(backptrs.shape)}")
-    if _route(backptrs, final_state) == "cpu":
+    return _route(backptrs, final_state)
+
+
+def backtrace_streamed(backptrs: torch.Tensor,
+                       final_state: torch.Tensor) -> torch.Tensor:
+    """states [C, P] from backpointers and the final state of each chain."""
+    if check_backtrace_args(backptrs, final_state) == "cpu":
         return backtrace_ref(backptrs, final_state)
+    return _backtrace(backptrs, final_state, caller=backtrace_streamed)
+
+
+backtrace_streamed.launches = 0
+
+
+def _backtrace(backptrs: torch.Tensor, final_state: torch.Tensor,
+               caller) -> torch.Tensor:
+    """The CUDA backtrace kernel on checked CUDA tensors (any S); a launch
+    counts in KERNEL_LAUNCHES and in ``caller.launches``."""
     C, P, S = backptrs.shape
     dev = backptrs.device
     if C == 0 or P == 0:
@@ -255,8 +313,6 @@ def backtrace_streamed(backptrs: torch.Tensor,
                                        final_state.data_ptr(),
                                        states.data_ptr(), C, P, S, stream)
         _check_launch(lib, err, "dpk_backtrace")
-        backtrace_streamed.launches += 1
+        KERNEL_LAUNCHES["dpk_backtrace"] += 1
+        caller.launches += 1
         return states
-
-
-backtrace_streamed.launches = 0

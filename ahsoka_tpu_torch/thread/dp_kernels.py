@@ -4,7 +4,9 @@ Counterpart of ``thread_batch_pallas_diploid`` and
 ``thread_batch_pallas_streamed`` (``ahsoka_tpu/thread/dp_pallas.py:91-184``):
 node costs (torch on the device) -> forward kernel -> ``torch.argmin`` of
 the final costs (first minimum) -> backtrace kernel.  Ploidy 2 takes the
-diploid kernels, ploidy 1 and 3-5 the general-ploidy ones.  The TPU
+diploid wrappers, ploidy 1 and 3-5 the general-ploidy ones; both launch
+the kernels of ``csrc/minplus_stream.cu``: ``dpk_forward_warp`` at ploidy
+1 and 2, ``dpk_forward`` at 3-5, ``dpk_backtrace`` at every ploidy.  The TPU
 versions padded the chain axis to 128-chain lane blocks or 1024-chain
 superblocks; the CUDA kernels take any chain count, so nothing is padded
 here.  CPU tensors run the same sequence through the kernels' plain
@@ -19,23 +21,25 @@ import torch
 
 from ahsoka_tpu_torch.ops.minplus_diploid import (backtrace_diploid,
                                                   minplus_forward_diploid)
-from ahsoka_tpu_torch.ops.minplus_stream import (backtrace_streamed,
+from ahsoka_tpu_torch.ops.minplus_stream import (KERNEL_LAUNCHES,
+                                                 backtrace_streamed,
                                                  minplus_forward_streamed)
 from ahsoka_tpu_torch.thread.dp_torch import node_costs_all
 
-KERNELS = {"dp2_forward": minplus_forward_diploid,
-           "dp2_backtrace": backtrace_diploid,
-           "dpk_forward": minplus_forward_streamed,
-           "dpk_backtrace": backtrace_streamed}
+WRAPPERS = (minplus_forward_diploid, backtrace_diploid,
+            minplus_forward_streamed, backtrace_streamed)
 
 
 def launch_counts() -> Dict[str, int]:
-    """CUDA launches of each DP kernel since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """CUDA launches of each DP kernel since the last reset, by kernel."""
+    return dict(KERNEL_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    """Zero the kernel counts and the wrappers' own ``launches``."""
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+    for fn in WRAPPERS:
         fn.launches = 0
 
 

@@ -14,18 +14,20 @@ JAX package (``ahsoka_tpu``):
 2. each DP kernel against its plain PyTorch version on the card, on
    seeded random DP inputs; backpointers, final costs and states must be
    exactly equal; median times with CUDA events:
-   - the diploid kernels at config4's DP shape (C=1000, P=56), ragged
+   - ploidy 2 through the diploid wrappers (``dpk_forward_warp`` and
+     ``dpk_backtrace``) at config4's DP shape (C=1000, P=56), ragged
      chain counts (C=1, C=37), a config2-length chain (C=1, P=10,000) and
-     an all-ties case;
-   - the general-ploidy kernels at config3c's DP shape (k=4, C=20,
+     all-ties batches (C=300, and C=1 over several staged tiles);
+   - the general-ploidy wrappers at config3c's DP shape (k=4, C=20,
      P=256), k=1 (C=1000, P=56), k=3 (C=37, P=56), k=5 (C=4, P=64,
      2002 states, 16 CTAs a chain; and C=200, P=12, one CTA an SM), one
-     chain at each ploidy (k=1-3 at P=300, a long tetraploid chain at
-     C=1, P=2048, k=5 at P=64) and all-ties k=4 and k=5 batches spread
-     over clusters; the general forward at every cluster size (1-16 CTAs
-     a chain) at k=3, 4 and 5; and the general forward equal to the
-     diploid one at k=2, timed beside it (C=1000, P=56 and C=1,
-     P=10,000);
+     chain at each ploidy (k=1-3 at P=300, a k=1 chain at P=10,000, a long
+     tetraploid chain at C=1, P=2048, k=5 at P=64), all-ties k=4 and k=5
+     batches spread over clusters, and the k <= 2 forward at the edges of
+     its staged tile T (P = T-1, T, T+1, 3T+5 at k=1 and 2); the general
+     forward at every cluster size (1-16 CTAs a chain) at k=3, 4 and 5;
+   - the backtrace on random backpointers over several staged tiles at
+     every ploidy (S = 2, 10, 56, 330, 2002);
 3. the golden diploid fixture through the port's ``run_only_bubbles`` and
    ``run_phase``, and the golden tetraploid one through the port's CLI
    (``--ploidy 4 --no-genotypes``), on the card, byte-equal to
@@ -34,15 +36,17 @@ JAX package (``ahsoka_tpu``):
    50 bubbles, 100k GAF records; cut from config4 to keep the whole smoke
    near five minutes once config5s joined it) end to end on the card with
    the bench settings (no readset debug files, coverage cap 64): every
-   chain phased with no failure, both diploid kernels launched by the
-   run, paths identical to re-threading the run's DP inputs with the
-   plain versions on the CPU, planted-truth switch error below 0.01;
+   chain phased with no failure, ``dpk_forward_warp`` and
+   ``dpk_backtrace`` launched by the run, paths identical to re-threading
+   the run's DP inputs with the plain versions on the CPU, planted-truth
+   switch error below 0.01;
 5. config3c (20 tetraploid chains x 200 bubbles, 42,720 GAF records) end
    to end on the card with the same settings and the balanced genotype
-   prior: every chain phased, both general kernels launched, paths
-   identical to a plain CPU re-threading, switch error below 0.02; then a
-   small mixed-ploidy run (one chain each of ploidy 2, 3, 4 and 5, a
-   ploidy map from the planted truth) that launches all four kernels,
+   prior: every chain phased, ``dpk_forward`` and ``dpk_backtrace``
+   launched, paths identical to a plain CPU re-threading, switch error
+   below 0.02; then a small mixed-ploidy run (one chain each of ploidy 2,
+   3, 4 and 5, a ploidy map from the planted truth) that launches all
+   three kernels,
    paths identical to a plain CPU re-threading;
 6. the beam-pruned DP (ploidy 6, ``thread/dp_beam.py``, torch code) on the
    card against the same function on the CPU at config5s's longest
@@ -57,7 +61,7 @@ JAX package (``ahsoka_tpu``):
    ragged chains of ploidy 2, 4 and 6, ~396k GAF records) end to end on
    the card with the bench settings, the balanced genotype prior, beam
    width 2048 and a ploidy map from the planted truth: every chain
-   phased, all four kernels launched, the beam taken by every hexaploid
+   phased, all three kernels launched, the beam taken by every hexaploid
    DP group, banded scoring by at least one chain, paths identical to a
    plain CPU re-threading (the beam groups included), switch error below
    0.02.
@@ -71,13 +75,15 @@ module may be loaded.  Any failure raises and exits non-zero.  The last
 line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 before it stand the card's ``nvidia-smi`` name/power-limit line, a
-``{"kernels": [...]}`` line with each kernel's launches in its end-to-end
-run (config4s for the diploid kernels, config3c for the general ones), its
-error against the plain version, both times (at config4's and config3c's
-DP shapes), its roofline bound (``bound``) and ``library_ms`` null, and
-the ``{"beam": ...}``, ``{"banded": ...}``, ``{"config5s": ...}`` and
-``{"dpk_forward_clusters": ...}`` lines with the times and counts of
-phases 2 and 6-8.
+``{"kernels": [...]}`` line with one entry per TPU kernel (row of
+PERF.md's kernel table) naming the CUDA kernel that serves it, with that
+kernel's launches in the row's end-to-end run (config4s for the diploid
+rows, config3c for the general ones), its error against the plain
+version, both times (at config4's and config3c's DP shapes), its
+roofline bound (``bound``; for a backtrace also the bytes its tiles move)
+and ``library_ms`` null, and the ``{"beam": ...}``, ``{"banded": ...}``,
+``{"config5s": ...}`` and ``{"dpk_forward_clusters": ...}`` lines with
+the times and counts of phases 2 and 6-8.
 """
 
 from __future__ import annotations
@@ -97,26 +103,35 @@ DATA = os.path.join(ROOT, "tests", "data")
 SWITCH, AFFINE = 32.0, 8.0            # PhasingConfig defaults
 MIXED_MAX_SWITCH_ERR = 0.02
 BEAM_WIDTH = 2048                     # scripts/bench_e2e.py's beam width
-LIBS = ("minplus_diploid", "minplus_stream")
-# name -> (source, TPU kernel it replaces, end-to-end run that reads its
-# launches, kernel-phase case that gives its times)
+LIBS = ("minplus_stream",)
+DP_SRC = "ahsoka_tpu_torch/csrc/minplus_stream.cu"
+# TPU kernel (a row of PERF.md's kernel table) -> (CUDA kernel that serves
+# it, its source, the TPU kernel it replaces with its pl.pallas_call
+# site, end-to-end run that reads its launches, kernel-phase case that
+# gives its times)
 KERNEL_META = {
-    "dp2_forward": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                    "ahsoka_tpu/ops/minplus_diploid.py:56", "config4s",
-                    "config4"),
-    "dp2_backtrace": ("ahsoka_tpu_torch/csrc/minplus_diploid.cu",
-                      "ahsoka_tpu/ops/minplus_diploid.py:188", "config4s",
-                      "config4"),
-    "dpk_forward": ("ahsoka_tpu_torch/csrc/minplus_stream.cu",
-                    "ahsoka_tpu/ops/minplus_stream.py:186 (_stream_kernel_ge);"
-                    " ahsoka_tpu/ops/minplus_stream.py:29 (_stream_kernel);"
-                    " ahsoka_tpu/ops/minplus.py:42 (_dp_kernel)", "config3c",
-                    "config3c"),
-    "dpk_backtrace": ("ahsoka_tpu_torch/csrc/minplus_stream.cu",
-                      "ahsoka_tpu/thread/dp_pallas.py:127 (the XLA-scan "
-                      "backtrace of thread_batch_pallas_streamed; no Pallas "
-                      "body)", "config3c", "config3c"),
+    "_dp2_kernel": ("dpk_forward_warp", DP_SRC,
+                    "ahsoka_tpu/ops/minplus_diploid.py:56 (_dp2_kernel; "
+                    "pl.pallas_call at ahsoka_tpu/ops/minplus_diploid.py:336)",
+                    "config4s", "config4"),
+    "_bt2_kernel": ("dpk_backtrace", DP_SRC,
+                    "ahsoka_tpu/ops/minplus_diploid.py:188 (_bt2_kernel; "
+                    "pl.pallas_call at ahsoka_tpu/ops/minplus_diploid.py:276)",
+                    "config4s", "config4"),
+    "_stream_kernel_ge": (
+        "dpk_forward", DP_SRC,
+        "ahsoka_tpu/ops/minplus_stream.py:186 (_stream_kernel_ge);"
+        " ahsoka_tpu/ops/minplus_stream.py:29 (_stream_kernel); pl.pallas_call"
+        " at ahsoka_tpu/ops/minplus_stream.py:411;"
+        " ahsoka_tpu/ops/minplus.py:42 (_dp_kernel; pl.pallas_call at"
+        " ahsoka_tpu/ops/minplus.py:131)", "config3c", "config3c"),
+    "xla_scan_backtrace": (
+        "dpk_backtrace", DP_SRC,
+        "ahsoka_tpu/thread/dp_pallas.py:127 (the XLA-scan backtrace of "
+        "thread_batch_pallas_streamed; no Pallas body)", "config3c",
+        "config3c"),
 }
+DP_KERNELS = ("dpk_forward_warp", "dpk_forward", "dpk_backtrace")
 
 
 # (ploidy, chains, positions) of the kernel-phase cases the JSON line reads
@@ -269,6 +284,14 @@ def bound(kernel: str, k: int, C: int, P: int):
                                      else "operations")
 
 
+def backtrace_tile_bytes(k: int, C: int, P: int) -> int:
+    """Bytes the backtrace's staged tiles move: every backpointer row but
+    row 0 of every chain (the bound counts only the P - 1 it follows)."""
+    from math import comb
+
+    return 4 * C * max(P - 1, 0) * comb(3 * k - 1, k)
+
+
 def _seed(k: int, C: int, P: int) -> int:
     return abs(C * 7919 + P + (k - 2) * 104729)
 
@@ -321,8 +344,36 @@ def _kernel_pair_case(pair, case, dev, err) -> dict:
     log(f"kernel parity {name} k={k} C={C} P={P}: exact; "
         + "; ".join(f"{n} {v[0]:.4f} ms vs plain {v[1]:.3f} ms "
                     f"(bound {bound(n, k, C, P)[0]:.3g} ms)"
-                    for n, v in t.items()))
+                    for n, v in t.items())
+        + f"; backtrace tiles {backtrace_tile_bytes(k, C, P)} bytes")
     return t
+
+
+def _backtrace_case(k: int, C: int, P: int, err) -> None:
+    """The backtrace kernel on seeded random backpointers (any state in
+    every row, so the walk visits arbitrary rows and columns) against its
+    plain version on the card, exactly."""
+    from math import comb
+
+    import numpy as np
+    import torch
+
+    from ahsoka_tpu_torch.ops import minplus_stream as ms
+    from ahsoka_tpu_torch.ops.minplus import backtrace_ref
+
+    S = comb(3 * k - 1, k)
+    rng = np.random.default_rng(_seed(k, C, P))
+    bp = torch.from_numpy(rng.integers(0, S, size=(C, P, S), dtype=np.int32))
+    fs = torch.from_numpy(rng.integers(0, S, size=C, dtype=np.int32))
+    bp, fs = bp.cuda(), fs.cuda()
+    got = ms.backtrace_streamed(bp, fs)
+    want = backtrace_ref(bp, fs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"dpk_backtrace != plain at k={k} (S={S}), "
+                             f"C={C}, P={P}")
+    err["dpk_backtrace"] = max(err.get("dpk_backtrace", 0.0),
+                               float((got - want).abs().max()))
 
 
 def phase_kernels(dev) -> dict:
@@ -338,32 +389,37 @@ def phase_kernels(dev) -> dict:
     from ahsoka_tpu_torch.thread.states import full_state_counts
 
     kw = dict(switch_cost=SWITCH, affine_cost=AFFINE)
-    diploid = ("dp2_forward",
+    diploid = ("dpk_forward_warp",
                lambda c, n: md.minplus_forward_diploid(c, n, **kw),
                lambda c, n: md.minplus_forward_diploid_ref(c, n, **kw),
-               "dp2_backtrace", md.backtrace_diploid,
+               "dpk_backtrace", md.backtrace_diploid,
                md.backtrace_diploid_ref)
 
     def general(k):
         counts = full_state_counts(k)
-        return ("dpk_forward",
+        return ("dpk_forward_warp" if k <= ms.SMALL_PLOIDY else "dpk_forward",
                 lambda c, n: ms.minplus_forward_streamed(
                     c, n, counts, ploidy=k, **kw),
                 lambda c, n: minplus_forward_ref(
                     c, n, counts, ploidy=k, **kw),
                 "dpk_backtrace", ms.backtrace_streamed, backtrace_ref)
 
-    # (name, ploidy, chains, positions, kernel reps, plain reps)
+    # (name, ploidy, chains, positions, kernel reps, plain reps): config4's
+    # group, ragged chain counts, a config2-length chain (C=1,
+    # P=10,000), all-ties batches of 300 chains and of one chain over
+    # several tiles
     diploid_cases = [("config4", 2, 1000, 56, 20, 20),
                      ("ragged1", 2, 1, 56, 5, 5),
                      ("ragged37", 2, 37, 56, 5, 5),
-                     ("config2_chain", 2, 1, 10000, 3, 1),
-                     ("all_ties", 2, 300, 24, 5, 5)]
+                     ("config2_chain", 2, 1, 10000, 5, 1),
+                     ("all_ties", 2, 300, 24, 5, 5),
+                     ("all_ties_c1", 2, 1, 3 * ms.WARP_TILE + 5, 5, 1)]
     # config3c's group, many chains at k=1 and 3, one chain at each
-    # ploidy (k=4: tetra_long), k=5 across the largest cluster (k5,
-    # k5_c1) and with more chains than SMs (k5_c200: one CTA an SM fits
-    # its shared memory) and all-ties batches spread over clusters (G = 4
-    # and 16)
+    # ploidy (k=4: tetra_long; k=1: a config2-length chain), k=5 across
+    # the largest cluster (k5, k5_c1) and with more chains than SMs
+    # (k5_c200: one CTA an SM fits its shared memory), all-ties batches
+    # spread over clusters (G = 4 and 16), and the k <= 2 forward at the
+    # edges of its staged tile (P = T - 1, T, T + 1, 3T + 5)
     general_cases = [("config3c", 4, 20, 256, 10, 3),
                      ("k1", 1, 1000, 56, 10, 5),
                      ("k3", 3, 37, 56, 10, 5),
@@ -371,18 +427,23 @@ def phase_kernels(dev) -> dict:
                      ("tetra_long", 4, 1, 2048, 5, 1),
                      ("all_ties_k4", 4, 20, 24, 5, 3),
                      ("k1_c1", 1, 1, 300, 10, 1),
+                     ("k1_long", 1, 1, 10000, 5, 1),
                      ("k2_c1", 2, 1, 300, 10, 1),
                      ("k3_c1", 3, 1, 300, 10, 1),
                      ("k5_c1", 5, 1, 64, 5, 1),
                      ("k5_c200", 5, 200, 12, 5, 1),
                      ("all_ties_k5", 5, 2, 20, 5, 1)]
+    T = ms.WARP_TILE
+    for k in (1, 2):
+        for P in (T - 1, T, T + 1, 3 * T + 5):
+            general_cases.append((f"tile_k{k}_P{P}", k, 3, P, 3, 1))
     timing, err, clusters = {}, {}, {}
     for case in diploid_cases:
         timing[case[0]] = _kernel_pair_case(diploid, case, dev, err)
     for case in general_cases:
         name, k, C, P = case[:4]
         clusters[name] = ms.cluster_size(C, comb(3 * k - 1, k), k, dev)
-        log(f"{name}: dpk_forward runs {clusters[name]} CTA(s) a chain")
+        log(f"{name}: the forward runs {clusters[name]} CTA(s) a chain")
         timing[name] = _kernel_pair_case(general(k), case, dev, err)
 
     # every cluster size at k = 3, 4, 5, exactly (the wrapper's launcher
@@ -401,24 +462,14 @@ def phase_kernels(dev) -> dict:
     log(f"dpk_forward at k=3, 4, 5 with {ms.CLUSTER_SIZES} CTAs a chain: "
         "exact")
 
-    # at ploidy 2 the general forward equals the diploid one bit for bit;
-    # their times side by side (config4's group and a config2 chain)
-    k2 = {}
-    for C, P in ((1000, 56), (1, 10000)):
-        arrays = random_dp_batch(C, P, seed=C * 7919 + P)
-        cand, node = _node_costs(arrays, dev)
-        fin_d, bp_d = diploid[1](cand, node)
-        fin_g, bp_g = general(2)[1](cand, node)
-        torch.cuda.synchronize()
-        if not (torch.equal(fin_d, fin_g) and torch.equal(bp_d, bp_g)):
-            raise AssertionError(f"dpk_forward != dp2_forward at k=2 "
-                                 f"(C={C}, P={P})")
-        reps = 20 if P < 1000 else 5
-        t_d = _median_ms(lambda: diploid[1](cand, node), reps)
-        t_g = _median_ms(lambda: general(2)[1](cand, node), reps)
-        k2[f"C={C},P={P}"] = {"dpk_forward_ms": t_g, "dp2_forward_ms": t_d}
-        log(f"dpk_forward == dp2_forward at k=2 C={C} P={P}: exact; "
-            f"dpk {t_g:.4f} ms vs dp2 {t_d:.4f} ms")
+    # the backtrace over several staged tiles of rows at every ploidy
+    # (S = 2, 10, 56, 330, 2002), on random backpointers
+    bt_cases = [(1, 2, 3000), (2, 2, 3000), (3, 2, 1000), (4, 2, 300),
+                (5, 2, 64), (5, 1, 37), (2, 300, 56)]
+    for k, C, P in bt_cases:
+        _backtrace_case(k, C, P, err)
+    log("dpk_backtrace on random backpointers, (k, C, P) "
+        f"{bt_cases}: exact")
 
     # int32 scatter-amin on the card (projection's scatter-min by name)
     idx = torch.tensor([0, 2, 0, 1, 2, 2], device=dev)
@@ -428,7 +479,7 @@ def phase_kernels(dev) -> dict:
     if out.cpu().tolist() != [3, 9, 2]:
         raise AssertionError(f"int32 scatter_reduce amin wrong: {out}")
     log("int32 scatter_reduce_(amin) on the card: ok")
-    return {"timing": timing, "err": err, "clusters": clusters, "k2": k2}
+    return {"timing": timing, "err": err, "clusters": clusters}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -647,9 +698,9 @@ def _dp_kernel_device_ms(dev, th, cfg) -> dict:
         synchronize(dev)
     out = {}
     for ev in prof.key_averages():
-        for kname in ("dp2_forward", "dp2_backtrace", "dpk_forward",
-                      "dpk_backtrace"):
-            if kname in ev.key:
+        for kname in DP_KERNELS:
+            # the demangled name: dpk_forward<4>(...), dpk_backtrace(...)
+            if f"{kname}<" in ev.key or f"{kname}(" in ev.key:
                 ms, n = out.get(kname, (0.0, 0))
                 out[kname] = (ms + ev.self_device_time_total / 1e3,
                               n + ev.count)
@@ -664,7 +715,7 @@ def e2e_runs(dev, which) -> dict:
 
     threads = min(os.cpu_count() or 1, 8)
     bench = dict(debug_readset_files=False, max_coverage=64, threads=threads)
-    diploid = ("dp2_forward", "dp2_backtrace")
+    diploid = ("dpk_forward_warp", "dpk_backtrace")
     general = ("dpk_forward", "dpk_backtrace")
     out = {}
     if "config4s" in which:
@@ -685,14 +736,14 @@ def e2e_runs(dev, which) -> dict:
         out["mixed"] = phase_e2e(
             dev, "mixed", spec,
             PhasingConfig(genotype_prior="balanced", **bench),
-            diploid + general, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
+            DP_KERNELS, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
     if "config5s" in which:
         # scripts/bench_e2e.py's settings, the beam width it passes
         out["config5s"] = phase_e2e(
             dev, "config5s", CONFIGS["config5s"],
             PhasingConfig(genotype_prior="balanced",
                           dp_beam_width=BEAM_WIDTH, **bench),
-            diploid + general, 0.02, ploidy_map=True, beam=True,
+            DP_KERNELS, 0.02, ploidy_map=True, beam=True,
             banded=True)
     return out
 
@@ -847,18 +898,20 @@ def main(argv=None) -> int:
 
     no_reference_modules("the whole smoke")
     kernels = []
-    for name, (src, rep, run, case) in KERNEL_META.items():
+    for row, (name, src, rep, run, case) in KERNEL_META.items():
         ms, plain_ms = kern["timing"][case][name]
         bound_ms, bound_by = bound(name, *CASE_SHAPES[case])
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": e2e[run]["launches"][name],
-                        "max_abs_err": kern["err"][name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None,
-                        "library_note": NO_LIBRARY_CALL})
-    log(json.dumps({"dpk_forward_clusters": kern["clusters"],
-                    "dpk_vs_dp2_at_k2": kern["k2"]}))
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "tpu_kernel": row,
+                 "launches": e2e[run]["launches"][name],
+                 "max_abs_err": kern["err"][name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "library_note": NO_LIBRARY_CALL}
+        if name == "dpk_backtrace":
+            entry["tile_bytes"] = backtrace_tile_bytes(*CASE_SHAPES[case])
+        kernels.append(entry)
+    log(json.dumps({"dpk_forward_clusters": kern["clusters"]}))
     c5 = e2e["config5s"]
     log(json.dumps({"beam": beam}))
     log(json.dumps({"banded": banded}))

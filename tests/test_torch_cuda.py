@@ -5,9 +5,10 @@ file imports no jax, so on a machine with a card and no jax it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The DP kernels must equal their plain versions exactly (the diploid and
-the general-ploidy ones, and each other at ploidy 2), and so must the
-beam DP; projection key tables exactly; dense scores within rtol = atol
+The DP kernels must equal their plain versions exactly (through the
+diploid and the general-ploidy wrappers, at the edges of the k <= 2
+forward's staged tile, on all-ties batches, and the backtrace over
+several tiles at every ploidy), and so must the beam DP; projection key tables exactly; dense scores within rtol = atol
 = 1e-4 (float32 matmuls summed in another order on the card); banded
 edges equal and in order, weights within rtol = atol = 1e-5; results
 byte-equal to the goldens."""
@@ -175,15 +176,74 @@ def test_cuda_general_forward_at_every_cluster_size(cuda_device, k, ties):
         assert torch.equal(bp.cpu(), bp_r), g
 
 
-def test_cuda_general_kernel_equals_diploid_kernel(cuda_device):
-    """At ploidy 2 the general forward kernel equals the diploid one bit
-    for bit (config4's DP shape)."""
-    fin_d, bp_d, st_d = _forward(_batch(1000, 56, seed=3), cuda_device)
-    fin_g, bp_g, st_g = _general(_batch(1000, 56, seed=3), 2, cuda_device)
+def _warp_batch(k, C, P, seed, ties=False):
+    dps = [random_dp_inputs(P=P, ploidy=k, num_clusters=2 * k + 1,
+                            seed=seed * 100 + i) for i in range(C)]
+    arrays = dp_torch._pack_group(dps, list(range(C)), P)
+    if ties:
+        arrays[0][:] = -1
+        arrays[0][:, :, :2] = [0, 1]
+        arrays[1][:] = 2
+    return arrays
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("P", [ms.WARP_TILE - 1, ms.WARP_TILE,
+                               ms.WARP_TILE + 1, 3 * ms.WARP_TILE + 5])
+def test_cuda_warp_forward_tile_edges(cuda_device, k, P):
+    """The k <= 2 forward (dpk_forward_warp) and the backtrace equal their
+    plain versions at the edges of the staged tile of positions."""
+    arrays = _warp_batch(k, 3, P, seed=P + k)
+    fin, bp, st = _general(arrays, k, cuda_device)
     torch.cuda.synchronize()
-    assert torch.equal(fin_d, fin_g)
-    assert torch.equal(bp_d, bp_g)
-    assert torch.equal(st_d, st_g)
+    fin_r, bp_r, st_r = _general(arrays, k, "cpu")
+    assert torch.equal(fin.cpu(), fin_r)
+    assert torch.equal(bp.cpu(), bp_r)
+    assert torch.equal(st.cpu(), st_r)
+
+
+@pytest.mark.parametrize("C,P", [(1, 3 * ms.WARP_TILE + 5), (300, 24)])
+def test_cuda_warp_forward_all_ties(cuda_device, C, P):
+    """All-ties diploid batches (the same two candidates everywhere, zero
+    node-cost weights): the first minimum wins in the balanced reduction,
+    over several tiles (C=1) and over many chains (C=300)."""
+    arrays = _warp_batch(2, C, P, seed=C, ties=True)
+
+    def run(device):
+        ca, nc, co, cs, ge = to_torch(*arrays, device=device)
+        node = dp_torch.node_costs_all(ca, nc, co, cs, ge,
+                                       full_state_counts(2),
+                                       full_state_validity(2), ploidy=2,
+                                       num_alleles=2, cov_w=0.0,
+                                       geno_w=0.0).contiguous()
+        fin, bp = md.minplus_forward_diploid(ca, node, **KW)
+        fs = torch.argmin(fin, dim=1).to(torch.int32)
+        return fin, bp, md.backtrace_diploid(bp, fs)
+
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    want = run("cpu")
+    valid = want[0][want[0] < 1e29]
+    assert (valid == valid[0]).all()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("k,C,P", [(1, 2, 3000), (2, 2, 3000), (3, 2, 1000),
+                                   (4, 2, 300), (5, 2, 64), (2, 300, 56)])
+def test_cuda_backtrace_over_tiles(cuda_device, k, C, P):
+    """The backtrace on random backpointers (every state in every row)
+    over several staged tiles of rows, S = 2 to 2002, against its plain
+    version."""
+    from ahsoka_tpu_torch.ops.minplus import backtrace_ref
+
+    S = full_state_counts(k).shape[0]
+    rng = np.random.default_rng(k * 1000 + P)
+    bp = torch.from_numpy(rng.integers(0, S, size=(C, P, S), dtype=np.int32))
+    fs = torch.from_numpy(rng.integers(0, S, size=C, dtype=np.int32))
+    got = ms.backtrace_streamed(bp.to(cuda_device), fs.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), backtrace_ref(bp, fs))
 
 
 def test_cuda_threading_matches_cpu(cuda_device):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a position of ``dpk_forward``'s time goes, on one CUDA card.
+"""Where a position of the forward kernels' time goes, on one CUDA card.
 
     python3 tools/dpk_forward_ablation.py [--out FILE]
 
@@ -22,6 +22,26 @@ on the card.  The variants compute garbage, at the cost of what is left:
 - ``nomloop_nobbuild``: and the B fragments zero instead of built;
 - ``all_off``: all of the above: what is left is the cp.async prefetch,
   the lane reductions, the backpointer and cost stores and the barrier.
+
+The k <= 2 forward (``dpk_forward_warp``) has variants of its own, timed
+at k <= 2 shapes (the ones above leave it as it is):
+
+- ``warp_nominplus``: the min-plus step of a position (the loads of the
+  staged transition costs, the shuffles of the previous costs, the adds
+  and the minimum) switched off; a position is left with the staged node
+  cost added to the carry and the backpointer stored.  Its time, times
+  P - 1, is the serial floor;
+- ``warp_noprep``: the tile's eq bits and transition costs not computed
+  (the min-plus step reads whatever the buffer holds);
+- ``warp_nostage``: no tile staged (no cp.async copies at all);
+- ``warp_all_off``: all three.
+
+The backtrace (``dpk_backtrace``) is timed on random backpointers at
+shapes of its own, in ``base`` and in two variants: ``bt_nowalk`` (no
+walk of the staged tiles: what is left is staging them and storing the
+states) and ``bt_nostage`` (no tile staged: the walk reads buffers zeroed
+once).  It prints microseconds a backpointer row, (P - 1) rows a
+chain.
 
 The last line is one JSON object: the card's ``nvidia-smi`` name and
 power limit, and ``{variant: {shape: us a position}}``.  ``--out`` also
@@ -60,6 +80,46 @@ _NOMLOOP = [("if (sp < MT) load_a<K>",
 _NOBBUILD = [("build_b<K>(cprow, ccrow, counts, t, q, bfr[nt]);",
               "for (int x = 0; x < L::KS; ++x) "
               "bfr[nt][x][0] = bfr[nt][x][1] = 0u * t;", 1)]
+_W_NOMINPLUS = [("minplus_step<K>(cost, trans_s + (jj * S + tl) * SP, best, "
+                 "bidx);",
+                 "best = cost;\n      bidx = 0;", 1)]
+_W_NOPREP = [("for (int jj = lane; jj < n; jj += 32) {",
+              "for (int jj = lane; jj < n && switch_cost < -1.0e38f; "
+              "jj += 32) {", 1),
+             ("for (int x = lane; x < n * S; x += 32) {\n"
+              "      const int jj = x / S",
+              "for (int x = lane; x < n * S && switch_cost < -1.0e38f; "
+              "x += 32) {\n      const int jj = x / S", 1)]
+_W_NOSTAGE = [("const int j0 = i * T, n = min(T, P - j0), b = i & 1;\n"
+               "    stage_async(",
+               "const int j0 = i * T, b = i & 1;\n"
+               "    const int n = switch_cost < -1.0e38f ? min(T, P - j0) : 0;"
+               "\n    stage_async(", 1)]
+# no copies, and the buffers zeroed once so that the walk stays in range
+_BT_NOSTAGE = [("    if (j1 > jl)\n      stage_async(smem_b",
+                "    if (j1 > jl && P < 0)\n      stage_async(smem_b", 1),
+               ("  int st = final_state[c];",
+                "  for (int x = tid; x < 2 * bw; x += kBtThreads) smem_b[x] = 0;\n"
+                "  __syncthreads();\n  int st = final_state[c];", 1)]
+_BT_NOWALK = [("if (tid == 0) {\n        const int* row = tile",
+               "if (tid == 0 && P < 0) {\n        const int* row = tile", 1),
+              ("if (tid < G) {\n        // 16 of the S walks",
+               "if (tid < G && P < 0) {\n        // 16 of the S walks", 1),
+              ("if (tid == 0) {\n        for (int g = G - 1;",
+               "if (tid == 0 && P < 0) {\n        for (int g = G - 1;", 1),
+              ("if (tid < G) {\n        int x = seg_in[tid];",
+               "if (tid < G && P < 0) {\n        int x = seg_in[tid];", 1)]
+BT_VARIANTS = {"bt_nowalk": _BT_NOWALK, "bt_nostage": _BT_NOSTAGE}
+# (name, ploidy, chains, positions) of the backtrace's shapes
+BT_SHAPES = [("bt_k2_long", 2, 1, 10000), ("bt_k4_long", 4, 1, 2048),
+             ("bt_config3c", 4, 20, 256), ("bt_k5_c1", 5, 1, 64),
+             ("bt_config4", 2, 1000, 56)]
+WARP_VARIANTS = {
+    "warp_nominplus": _W_NOMINPLUS,
+    "warp_noprep": _W_NOPREP,
+    "warp_nostage": _W_NOSTAGE,
+    "warp_all_off": _W_NOMINPLUS + _W_NOPREP + _W_NOSTAGE,
+}
 VARIANTS = {
     "base": [],
     "noremote": _NOREMOTE,
@@ -74,7 +134,19 @@ SHAPES = [("tetra_long/G16", 4, 1, 2048, 16),
           ("config3c/G4", 4, 20, 256, 4),
           ("k5/G16", 5, 4, 64, 16),
           ("k3_c1/G1", 3, 1, 300, 1),
-          ("k4_c300/G1", 4, 300, 56, 1)]
+          ("k4_c300/G1", 4, 300, 56, 1),
+          # k <= 2: dpk_forward_warp (one warp a chain)
+          ("k2_long/G1", 2, 1, 10000, 1),
+          ("k1_long/G1", 1, 1, 10000, 1),
+          ("k2_config4/G1", 2, 1000, 56, 1)]
+ALL_VARIANTS = {**VARIANTS, **WARP_VARIANTS, **BT_VARIANTS}
+
+
+def variants_for(k: int):
+    """The variants timed at ploidy k: base and those of the kernel that
+    runs it."""
+    family = WARP_VARIANTS if k <= 2 else VARIANTS
+    return ["base"] + [n for n in family if n != "base"]
 
 
 def variant_source(edits) -> str:
@@ -94,7 +166,7 @@ def build_all() -> dict:
 
     os.makedirs(WORK, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in ALL_VARIANTS.items():
         src = os.path.join(WORK, f"{name}.cu")
         with open(src, "w") as fh:
             fh.write(variant_source(edits))
@@ -112,6 +184,8 @@ def build_all() -> dict:
         lib.ahsoka_dpk_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, cf, cf, vp]
         lib.ahsoka_dpk_forward.restype = ci
+        lib.ahsoka_dpk_backtrace.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.ahsoka_dpk_backtrace.restype = ci
         libs[name] = lib
     return libs
 
@@ -121,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args(argv)
 
+    from math import comb
+
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -129,7 +206,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from ahsoka_tpu_torch.ops import minplus_stream as ms
-    from ahsoka_tpu_torch.ops.minplus import minplus_forward_ref
+    from ahsoka_tpu_torch.ops.minplus import (backtrace_ref,
+                                              minplus_forward_ref)
     from ahsoka_tpu_torch.thread.states import full_state_counts
 
     dev = torch.device("cuda", 0)
@@ -137,7 +215,7 @@ def main(argv=None) -> int:
     libs = build_all()
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    result = {name: {} for name in VARIANTS}
+    result = {name: {} for name in ALL_VARIANTS}
     for shape, k, C, P, G in SHAPES:
         counts = full_state_counts(k)
         S = counts.shape[0]
@@ -146,8 +224,8 @@ def main(argv=None) -> int:
         planes, packed = ms._device_tables(counts, k, dev)
         bp = torch.empty((C, P, S), dtype=torch.int32, device=dev)
         fin = torch.empty((C, S), dtype=torch.float32, device=dev)
-        for name, lib in libs.items():
-            def run(lib=lib):
+        for name in variants_for(k):
+            def run(lib=libs[name], name=name):
                 err = lib.ahsoka_dpk_forward(
                     cand.data_ptr(), node.data_ptr(), planes.data_ptr(),
                     packed.data_ptr(), bp.data_ptr(), fin.data_ptr(), C, P,
@@ -164,10 +242,33 @@ def main(argv=None) -> int:
                 if not (torch.equal(fin, fin_r) and torch.equal(bp, bp_r)):
                     raise AssertionError(f"base != plain at {shape}")
             result[name][shape] = cs._median_ms(run, 9) * 1e3 / (P - 1)
+    for shape, k, C, P in BT_SHAPES:
+        S = comb(3 * k - 1, k)
+        rng = np.random.default_rng(cs._seed(k, C, P))
+        bp = torch.from_numpy(rng.integers(0, S, size=(C, P, S),
+                                           dtype=np.int32)).to(dev)
+        fs = torch.from_numpy(rng.integers(0, S, size=C,
+                                           dtype=np.int32)).to(dev)
+        st = torch.empty((C, P), dtype=torch.int32, device=dev)
+        for name in ["base", *BT_VARIANTS]:
+            def run(lib=libs[name], name=name):
+                err = lib.ahsoka_dpk_backtrace(
+                    bp.data_ptr(), fs.data_ptr(), st.data_ptr(), C, P, S,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} at {shape}: CUDA error {err}")
+
+            if name == "base":
+                run()
+                if not torch.equal(st, backtrace_ref(bp, fs)):
+                    raise AssertionError(f"base != plain at {shape}")
+            result[name][shape] = cs._median_ms(run, 9) * 1e3 / (P - 1)
     card = cs.nvidia_smi_line()
     print(card)
     for name, row in result.items():
-        print(f"{name:18s} us a position: " + "; ".join(
+        if not row:
+            continue
+        print(f"{name:18s} us a position (row): " + "; ".join(
             f"{shape} {us:.2f}" for shape, us in row.items()))
     line = json.dumps({"card": card, "us_per_position": result})
     if args.out:
