@@ -8,10 +8,15 @@ Same subcommands and flags as the JAX package's ``ahsoka-tpu`` (its
     ahsoka-tpu-torch only-bubbles -g <graph.gfa> -o <outstem>
 
 ``--device cuda`` (the default) needs an NVIDIA card and raises without
-one.  Flags for paths the port does not run yet (data/chain sharding,
-multi-process layouts, the host backend) are accepted by the parser and
-raise NotImplementedError naming the ROADMAP item.  Ploidy 1-6 (ploidy 6
-with ``--dp-beam-width``) runs on both devices.
+one.  ``--data-shards`` / ``--chain-shards`` shard over every visible
+card, or one card a rank in a ``--num-processes`` group (the CPU counts
+as one device), and fall back to the unsharded path with fewer devices,
+as the JAX package does.  ``--num-processes`` > 1
+starts a torch.distributed process group (``--coordinator``,
+``--process-id``): NCCL for the mesh layout on CUDA, gloo otherwise.
+``--backend host`` is accepted by the parser and raises
+NotImplementedError: the JAX package keeps the host oracle.  Ploidy 1-6
+(ploidy 6 with ``--dp-beam-width``) runs on both devices.
 """
 
 from __future__ import annotations
@@ -116,13 +121,6 @@ def _unsupported(args) -> Optional[str]:
     if args.backend != "jax":
         return ("--backend host: the host oracle is ahsoka-tpu's "
                 "--backend host; the port runs the device pipeline")
-    if args.data_shards > 1 or args.chain_shards > 1:
-        return ("--data-shards/--chain-shards > 1: sharded layouts "
-                "(ROADMAP queue 1 item 11)")
-    if (args.num_processes and args.num_processes > 1) \
-            or args.coordinator or args.process_sharding != "mesh":
-        return ("multi-process layouts (--coordinator, --num-processes, "
-                "--process-sharding chains): ROADMAP queue 1 item 11")
     return None
 
 
@@ -137,6 +135,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         if why:
             raise NotImplementedError(f"not ported yet: {why}")
         from ahsoka_tpu_torch.pipeline import run_phase
+        chains = args.process_sharding == "chains"
+        if args.num_processes and args.num_processes > 1:
+            # every process joins the group before any device work
+            from ahsoka_tpu_torch.dist.mesh import (group_backend,
+                                                    initialize_distributed)
+            initialize_distributed(coordinator=args.coordinator,
+                                   num_processes=args.num_processes,
+                                   process_id=args.process_id,
+                                   backend=group_backend(args.device,
+                                                         chains))
         ploidy_map = None
         if args.ploidy_map:
             import json
@@ -148,7 +156,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             use_genotypes=not args.no_genotypes,
             genotype_prior=args.genotype_prior,
             max_coverage=args.max_coverage, threads=args.threads,
-            dp_beam_width=args.dp_beam_width)
+            dp_beam_width=args.dp_beam_width, data_shards=args.data_shards,
+            chain_shards=args.chain_shards, process_chain_sharding=chains)
         run_phase(args.graph, args.alignments, args.output, config,
                   device=args.device, resume=args.resume,
                   keep_going=args.keep_going, profile_dir=args.profile)

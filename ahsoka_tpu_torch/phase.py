@@ -13,18 +13,26 @@ from the device to another path.  ``keep_going`` keeps its documented
 behaviour (per-chain failures are recorded and the run continues; a
 failed batched DP is retried chain by chain, and logged).
 
+Sharded layouts: ``devices`` (this process's torch devices) carries the
+mesh to the stages, whose device-count gates decide whether
+``data_shards`` / ``chain_shards`` shard them (``dist/``).  Every
+collective runs on the calling thread, in the same order on every
+rank: a data-sharded run projects every chain in the pre-pass, and the
+dense chains score in the batched slices, so the ``--threads`` workers
+call none.  ``process_chain_sharding`` splits the chains round-robin
+over the ranks of a process group; each rank writes its chains' files and
+rank 0 merges the aggregate result between two barriers.
+
 Chains above ``banded_scoring_threshold`` effective reads take banded
 scoring (``score/banded.py``) and the native sparse cluster editing.
 The native helpers (cluster editing, coverage cap) are built (g++, at
 first use, under a file lock) and loaded once on the calling thread
 before the worker pool starts; a failed build raises.
-
-Not ported (raise ``NotImplementedError`` naming the ROADMAP item):
-data/chain sharding and multi-process chain sharding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -33,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 from ahsoka_tpu_torch.cluster.editing import cluster_editing
 from ahsoka_tpu_torch.cluster.postprocess import consensus_lookup
 from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.dist.mesh import barrier, world
 from ahsoka_tpu_torch.emit.result import emit_chain_result
 from ahsoka_tpu_torch.project.readset import ChainReadsets
 from ahsoka_tpu_torch.utils import substage
@@ -103,21 +112,20 @@ _PRE_PASS_MAX_BUBBLES = 512
 _PRE_PASS_SLICE = 256
 
 
-def check_supported(config: PhasingConfig) -> None:
-    """Raise for configurations the port does not run yet."""
-    if config.process_chain_sharding:
-        raise NotImplementedError(
-            "multi-process chain sharding is not ported yet: ROADMAP "
-            "queue 1 item 11")
-    if config.data_shards > 1 or config.chain_shards > 1:
-        raise NotImplementedError(
-            "data_shards/chain_shards > 1 (sharded projection, scoring "
-            "and DP) are not ported yet: ROADMAP queue 1 item 11")
+def check_layout(config: PhasingConfig) -> None:
+    """Refuse the chain layout combined with data or chain shards above 1
+    at more than one process (``ahsoka_tpu/phase.py:464-472``)."""
+    if config.process_chain_sharding and world()[0] > 1 \
+            and (config.data_shards > 1 or config.chain_shards > 1):
+        raise ValueError(
+            "process_chain_sharding keeps device calls process-local; "
+            "data_shards/chain_shards must be 1 (use the mesh layout for "
+            "cross-process collectives)")
 
 
 def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
                         config, result, columns=None, bucket=None,
-                        precomputed=None, device="cuda"):
+                        precomputed=None, device="cuda", devices=None):
     """Chain pipeline through the allele matrix (projection + matrix
     assembly + coverage cap).  Returns the AlleleMatrix, or None with
     result.reason set."""
@@ -148,8 +156,8 @@ def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
             return None
         marks["prepare"] = time.perf_counter() - t
         t = time.perf_counter()
-        full_k, part_k, gate_k = containment_key_tables(inputs, config,
-                                                        device=device)
+        full_k, part_k, gate_k = containment_key_tables(
+            inputs, config, device=device, devices=devices)
         marks["projection"] = time.perf_counter() - t
     t = time.perf_counter()
     with substage.timed("matrix.sweep"):
@@ -179,7 +187,8 @@ def _chain_matrix_stage(chain_id, bubble_paths, alignments, outstem,
 
 
 def _chain_cluster_dp_stage(matrix, config, result, scores=None,
-                            collapse=_COLLAPSE_UNSET, device="cuda"):
+                            collapse=_COLLAPSE_UNSET, device="cuda",
+                            devices=None):
     """Allele matrix -> DP inputs (dense or, above
     ``banded_scoring_threshold`` effective rows, banded scoring; cluster
     editing, plain or over collapsed identical rows).  ``scores``
@@ -234,7 +243,8 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
         t = time.perf_counter()
         if scores is None:
             scores = score_pairs_device(collapse.matrix, config,
-                                        mult=collapse.mult, device=device)
+                                        mult=collapse.mult, device=device,
+                                        devices=devices)
         # weighted group graph: edge weight m_u * m_v * s(u, v)
         w = scores * np.outer(collapse.mult, collapse.mult)
         np.fill_diagonal(w, 0.0)
@@ -249,7 +259,8 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     else:
         t = time.perf_counter()
         if scores is None:
-            scores = score_pairs_device(matrix, config, device=device)
+            scores = score_pairs_device(matrix, config, device=device,
+                                        devices=devices)
         marks["scoring"] = marks.get("scoring", 0.0) \
             + (time.perf_counter() - t)
         t = time.perf_counter()
@@ -282,19 +293,23 @@ def _dp_frontier_width(config: PhasingConfig, S: int) -> int:
     return _beam_width_for(config, S) or S
 
 
-def _projection_pre_pass(art, work, config, columns, device
+def _projection_pre_pass(art, work, config, columns, device, devices
                          ) -> Tuple[Dict[int, tuple], float]:
-    """Batched projection for every pre-pass chain (<= 512 bubbles), in
-    slices of 256 chains so one slice's padded inputs are live at a time.
-    Returns ({chain_id: (inputs, key tables)}, seconds per chain)."""
+    """Batched projection for every pre-pass chain (<= 512 bubbles; every
+    chain when the projection is data-sharded, so that its collectives
+    stay on this thread), in slices of 256 chains so one slice's padded
+    inputs are live at a time.  Returns ({chain_id: (inputs, key
+    tables)}, seconds per chain)."""
     from ahsoka_tpu_torch.project.device import (
-        containment_key_tables_many, prepare_chain_inputs,
+        containment_key_tables_many, data_mesh, prepare_chain_inputs,
         prepare_chain_inputs_from_columns)
 
     pre: Dict[int, tuple] = {}
     t_pre = time.perf_counter()
+    sharded = data_mesh(config, devices, device) is not None
+    cap = float("inf") if sharded else _PRE_PASS_MAX_BUBBLES
     todo = [chain_id for _size, chain_id in work
-            if 1 < len(art.allele_paths[chain_id]) <= _PRE_PASS_MAX_BUBBLES]
+            if 1 < len(art.allele_paths[chain_id]) <= cap]
     for s0 in range(0, len(todo), _PRE_PASS_SLICE):
         cand = []
         for chain_id in todo[s0:s0 + _PRE_PASS_SLICE]:
@@ -320,7 +335,8 @@ def _projection_pre_pass(art, work, config, columns, device
         if not cand:
             continue
         tables = containment_key_tables_many([inp for _, inp in cand],
-                                             config, device=device)
+                                             config, device=device,
+                                             devices=devices)
         for (cid, inp), tab in zip(cand, tables):
             if not config.debug_readset_files:
                 # the kernel consumed the one-hots; the matrix stage
@@ -334,39 +350,55 @@ def _projection_pre_pass(art, work, config, columns, device
 
 def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                              resume: bool = False, keep_going: bool = False,
-                             device="cuda") -> List[ChainPhasingResult]:
+                             device="cuda", devices=None
+                             ) -> List[ChainPhasingResult]:
     """Batched driver: pass 1 runs every chain up to its allele matrix,
     pass 2 scores and clusters, pass 3 threads all chains batched and
     emits in size-sorted order.  ``device`` is the torch device of the
-    projection, scoring and DP stages."""
+    projection, scoring and DP stages; ``devices`` this process's devices
+    for the sharded layouts (default: every card for CUDA, ``device``
+    alone for the CPU)."""
     from ahsoka_tpu_torch.thread.dp_host import assign_rows
     from ahsoka_tpu_torch.thread.states import max_states
     from ahsoka_tpu_torch.score.device import score_pairs_device_many
     from ahsoka_tpu_torch.thread.dp_torch import (thread_chain_device,
                                                   thread_chains_batched)
 
-    check_supported(config)
+    check_layout(config)
     _load_native_helpers(config)
     columns = getattr(art, "gaf_columns", None)
+    # multi-process chain sharding: chains go round-robin over the ranks
+    # in size-sorted order (ahsoka_tpu/phase.py:458-472)
+    nproc, rank = world() if config.process_chain_sharding else (1, 0)
 
     # resume decisions are serial and cheap; output order is the
     # deterministic size_sorting order
     work: List[Tuple[int, int]] = []        # (size, chain_id)
     slots: List = []                        # records in size_sorting order
-    for size, chain_id in art.size_sorting:
+    for idx, (size, chain_id) in enumerate(art.size_sorting):
+        if nproc > 1 and idx % nproc != rank:
+            res = ChainPhasingResult(chain_id=chain_id, num_bubbles=size,
+                                     skipped=True,
+                                     reason="owned by another process")
+            slots.append(("remote", res, None))
+            continue
         chain_file = f"{outstem}-chain{chain_id}-result.txt"
         if resume and os.path.exists(chain_file):
             res = ChainPhasingResult(chain_id=chain_id, num_bubbles=size,
                                      skipped=False, resumed=True)
             slots.append(("resumed", res, chain_file))
         else:
+            if nproc > 1 and os.path.exists(chain_file):
+                # the aggregate is rebuilt from chain files: a stale one
+                # would resurrect a chain this run skips or fails
+                os.remove(chain_file)
             slots.append(len(work))         # placeholder index
             work.append((size, chain_id))
 
     pre, pre_share = ({}, 0.0)
     if work:
         pre, pre_share = _projection_pre_pass(art, work, config, columns,
-                                              device)
+                                              device, devices)
 
     def matrix_one(size, chain_id):
         """Pass-1 body: chain -> ("skipped", res, None) or
@@ -389,7 +421,8 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                 (art.alignments.chain_alignments(chain_id)
                  if columns is None else None),
                 outstem, ccfg, res, columns=columns, bucket=bucket,
-                precomputed=pre.get(chain_id), device=device)
+                precomputed=pre.get(chain_id), device=device,
+                devices=devices)
             if chain_id in pre:
                 res.stage_seconds["projection"] = pre_share
         except Exception as exc:
@@ -425,7 +458,8 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
         t0 = time.perf_counter()
         try:
             dp = _chain_cluster_dp_stage(matrix, ccfg, res, scores=scores,
-                                         collapse=cm, device=device)
+                                         collapse=cm, device=device,
+                                         devices=devices)
         except Exception as exc:
             if not keep_going:
                 raise
@@ -451,13 +485,13 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
         _cid, _bp, matrix, cm, _ccfg = payload
         return cm.num_groups if cm is not None else matrix.num_reads
 
-    # batched dense scoring, consumed slice by slice under a host-byte
-    # budget for the fetched [G, G] float64 matrices
+    # batched dense scoring on this thread, consumed slice by slice under
+    # a host-byte budget for the fetched [G, G] float64 matrices
     dense_idx = [i for i, (kind, _res, payload) in enumerate(prepared)
                  if kind == "matrix"
                  and _effective(payload) <= config.banded_scoring_threshold]
     slices: List[List[int]] = []
-    if len(dense_idx) > 1:
+    if dense_idx:
         budget = max(int(config.score_fetch_budget_bytes), 1 << 20)
         cur: List[int] = []
         cur_bytes = 0
@@ -480,7 +514,7 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
             mats.append(cm.matrix if cm is not None else matrix)
             mults.append(cm.mult if cm is not None else None)
         many = score_pairs_device_many(mats, config, mults=mults,
-                                       device=device)
+                                       device=device, devices=devices)
         score_map = dict(zip(sl, many))
         del many, mats
         share = (time.perf_counter() - t_sl) / len(sl)
@@ -517,7 +551,7 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
     t0 = time.perf_counter()
     try:
         paths = thread_chains_batched(dps, config, chain_configs=dp_cfgs,
-                                      device=device)
+                                      device=device, devices=devices)
     except Exception as exc:
         # keep_going: retry chain by chain so one sick chain cannot
         # abort the run; without it the failure propagates
@@ -528,7 +562,8 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
         paths = []
         for dp, dcfg in zip(dps, dp_cfgs):
             try:
-                paths.append(thread_chain_device(dp, dcfg, device=device))
+                paths.append(thread_chain_device(dp, dcfg, device=device,
+                                                 devices=devices))
             except Exception as exc2:
                 log.error("per-chain threading failed: %s", exc2)
                 paths.append(None)
@@ -541,15 +576,21 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
         art.stage_seconds["substages"] = sub
 
     results: List[ChainPhasingResult] = []
-    with open(f"{outstem}-result.txt", "w") as full_output:
+    # with several ranks each writes its chain files and rank 0 merges the
+    # aggregate below
+    agg = (open(f"{outstem}-result.txt", "w") if nproc == 1
+           else contextlib.nullcontext(None))
+    with agg as full_output:
         for kind, res, payload in records:
-            full_output.write(f"chain id: {res.chain_id}\n")
-            full_output.write(f"size of chain: {res.num_bubbles}\n")
+            if full_output is not None:
+                full_output.write(f"chain id: {res.chain_id}\n")
+                full_output.write(f"size of chain: {res.num_bubbles}\n")
             if kind == "resumed":
-                with open(payload) as fh:
-                    for i, line in enumerate(fh):
-                        full_output.write(f"haplotype {i}:\n")
-                        full_output.write(line)
+                if full_output is not None:
+                    with open(payload) as fh:
+                        for i, line in enumerate(fh):
+                            full_output.write(f"haplotype {i}:\n")
+                            full_output.write(line)
             elif kind == "compute" and paths[payload[4]] is None:
                 res.reason, res.error = "error", "threading failed"
             elif kind == "compute":
@@ -572,7 +613,31 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                 res.seconds += (time.perf_counter() - t1
                                 + dp_seconds / max(len(dps), 1))
             results.append(res)
+    if nproc > 1:
+        # every owner has written its chain files (shared filesystem);
+        # rank 0 assembles the aggregate in size-sorted order
+        barrier()
+        if rank == 0:
+            merge_aggregate_result(outstem, art.size_sorting)
+        barrier()
     return results
+
+
+def merge_aggregate_result(outstem: str, size_sorting) -> None:
+    """Rebuild the aggregate -result.txt from the per-chain result files
+    (``ahsoka_tpu/phase.py:829-845``): headers for every chain, haplotype
+    sections for the phased ones, byte for byte the single-process
+    layout."""
+    with open(f"{outstem}-result.txt", "w") as out:
+        for size, chain_id in size_sorting:
+            out.write(f"chain id: {chain_id}\n")
+            out.write(f"size of chain: {size}\n")
+            chain_file = f"{outstem}-chain{chain_id}-result.txt"
+            if os.path.exists(chain_file):
+                with open(chain_file) as fh:
+                    for i, line in enumerate(fh):
+                        out.write(f"haplotype {i}:\n")
+                        out.write(line)
 
 
 def _write_readset_debug_files(outstem: str, chain_id: int,

@@ -7,13 +7,17 @@
 Parsing, bubbles, allele paths and the bubbleinfo/identities side files
 are host stages (this package's copies of the JAX package's, byte-equal
 in output).  Phasing runs ``ahsoka_tpu_torch.phase.phase_all_chains_batched``
-on a torch device.
+on a torch device (and, in the sharded layouts, a list of them).  In the
+chain layout over several processes (``process_chain_sharding``) rank 0
+alone writes the shared side files, and every other rank its metrics as
+``-metrics.rank<r>.json``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -21,6 +25,7 @@ import torch
 
 from ahsoka_tpu_torch.config import PhasingConfig
 from ahsoka_tpu_torch.device import resolve_device
+from ahsoka_tpu_torch.dist.mesh import local_devices, own_card, world
 from ahsoka_tpu_torch.emit.bubbleinfo import write_bubbleinfo_file
 from ahsoka_tpu_torch.graph.alleles import (AllelePathTable,
                                             enumerate_allele_paths)
@@ -79,6 +84,31 @@ def run_only_bubbles(gfa_path: str, outstem: str,
     return write_bubbleinfo_file(art.index, outstem)
 
 
+def _secondary_process(config: PhasingConfig) -> bool:
+    """True on the ranks above 0 of a chain-sharded multi-process run
+    (``ahsoka_tpu/pipeline.py:77-98``): the shared side files
+    (bubbleinfo, identities, the aggregate) are written by rank 0 alone,
+    since identical concurrent writers would race on the shared
+    filesystem."""
+    if not getattr(config, "process_chain_sharding", False):
+        return False
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        # a library caller that skipped the CLI's initialize_distributed:
+        # this process cannot see its siblings, so the rank-0-only side
+        # files cannot engage; say so rather than race silently
+        log.warning(
+            "process_chain_sharding is set but no torch.distributed "
+            "process group was initialized; treating this as a single-"
+            "process run (rank-0-only side-file writing inactive). Call "
+            "ahsoka_tpu_torch.dist.mesh.initialize_distributed (or use the "
+            "CLI's --coordinator/--num-processes flags) before run_phase "
+            "for multi-process layouts.")
+        return False
+    nproc, rank = world()
+    return nproc > 1 and rank > 0
+
+
 def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
                          config: PhasingConfig,
                          columnar: bool = False) -> PipelineArtifacts:
@@ -88,7 +118,9 @@ def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
     parser) and buckets by chain with vectorised numpy — no per-record
     objects; run_phase uses it unless readset debug files are asked for."""
     art = load_graph_and_bubbles(gfa_path, config)
-    write_bubbleinfo_file(art.index, outstem)
+    secondary = _secondary_process(config)
+    if not secondary:
+        write_bubbleinfo_file(art.index, outstem)
 
     t0 = time.perf_counter()
     if columnar:
@@ -106,13 +138,15 @@ def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
                 config.compat_duplicate_bucketing)
             art.alignments = AlignmentTable(num_records=cols.num_records)
             # identities side file from the same raw native arrays
-            _write_identities_from_native(gaf_path, raw=raw)
+            if not secondary:
+                _write_identities_from_native(gaf_path, raw=raw)
         else:
             log.warning("native GAF parser unavailable; falling back to "
                         "the object parser")
             columnar = False
     if not columnar:
-        with open(identities_sidefile_path(gaf_path), "w") as idf:
+        with open(identities_sidefile_path(gaf_path) if not secondary
+                  else os.devnull, "w") as idf:
             art.alignments = read_gaf(
                 gaf_path, art.index, identities_out=idf,
                 compat_duplicate_bucketing=
@@ -193,16 +227,26 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
               config: PhasingConfig = PhasingConfig(), device="cuda",
               resume: bool = False, keep_going: bool = False,
               profile_dir: Optional[str] = None,
-              columnar: Optional[bool] = None) -> PipelineArtifacts:
+              columnar: Optional[bool] = None,
+              devices=None) -> PipelineArtifacts:
     """The full ``phase`` subcommand on ``device`` (default ``cuda``;
-    raises when no card is available).  ``profile_dir`` writes a
-    torch.profiler trace of the phasing stage (Chrome trace JSON)."""
+    raises when no card is available).  ``devices`` is this process's
+    device list for ``data_shards`` / ``chain_shards`` (default: every
+    card for CUDA, or this rank's own card in a process group of more
+    than one rank, ``device`` alone for the CPU; it may repeat a device).
+    ``profile_dir`` writes a torch.profiler trace of the phasing stage
+    (Chrome trace JSON)."""
     from ahsoka_tpu_torch.utils.malloc_tune import retain_freed_heap
-    from ahsoka_tpu_torch.phase import (check_supported,
+    from ahsoka_tpu_torch.phase import (check_layout,
                                         phase_all_chains_batched)
 
-    dev = resolve_device(device)
+    dev = resolve_device(own_card(device))
+    devs = [resolve_device(d) for d in local_devices(devices, dev)]
     # validate before the (possibly minutes-long) input parse
+    if config.process_chain_sharding and not (config.backend == "jax"
+                                              and config.batch_dp):
+        raise ValueError("process_chain_sharding requires the batched "
+                         "device pipeline (backend='jax', batch_dp=True)")
     if config.backend != "jax":
         raise NotImplementedError(
             f"backend={config.backend!r}: the port runs the device "
@@ -212,7 +256,7 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
         raise NotImplementedError(
             "batch_dp=False (the per-chain sequential driver) is not "
             "ported; the batched driver gives the same outputs")
-    check_supported(config)
+    check_layout(config)
     retain_freed_heap()
     if columnar is None:
         columnar = not config.debug_readset_files
@@ -230,10 +274,9 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
         results = phase_all_chains_batched(art, outstem, config,
                                            resume=resume,
                                            keep_going=keep_going,
-                                           device=dev)
+                                           device=dev, devices=devs)
     finally:
         if prof is not None:
-            import os
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir,
@@ -284,5 +327,13 @@ def _write_metrics(outstem: str, art: PipelineArtifacts, results,
              "resumed": r.resumed}
             for r in results],
     }
-    with open(f"{outstem}-metrics.json", "w") as fh:
+    path = f"{outstem}-metrics.json"
+    if _secondary_process(config):
+        # chain-sharded multi-process: each rank reports its own share;
+        # rank 0 keeps the canonical file name
+        nproc, rank = world()
+        path = f"{outstem}-metrics.rank{rank}.json"
+        metrics["process_index"] = rank
+        metrics["process_count"] = nproc
+    with open(path, "w") as fh:
         json.dump(metrics, fh, indent=1)

@@ -11,7 +11,8 @@ the port's one forced copy of it:
   and ``assemble_readsets``;
 - device half, in torch: ``containment_keys_core`` with a written-out
   chain batch, ``containment_key_tables`` (batch of one, bubble-blocked
-  for oversized tables) and ``containment_key_tables_many``.
+  for oversized tables, data-sharded over a mesh with ``data_shards`` >
+  1) and ``containment_key_tables_many``.
 
 The containment test is two matmuls: with V the chain's path-node
 vocabulary, P[s, v] the one-hot of allele path s and A[a, v] the node
@@ -36,6 +37,9 @@ import numpy as np
 import torch
 
 from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.dist.mesh import DATA_AXIS, gated_mesh, local_devices
+from ahsoka_tpu_torch.dist.step import (shard_alignments,
+                                        sharded_containment_keys)
 from ahsoka_tpu_torch.io.gaf import Alignment
 from ahsoka_tpu_torch.project.readset import (ChainReadsets, Read, ReadSet,
                                         _filter, partial_inner,
@@ -537,7 +541,8 @@ _BATCH_DEVICE_BYTES = 1 << 30
 def containment_keys_core(pf, pi, plf, pli, pb, pkb, nodes, name_id, ident,
                           gate_mask_value: float, *, num_bubbles: int,
                           num_names: int, chunk: int,
-                          alleles_per_bubble: int = 0) -> torch.Tensor:
+                          alleles_per_bubble: int = 0,
+                          aln_offset: int = 0) -> torch.Tensor:
     """Containment matmuls + packed-key reductions for a chain batch.
 
     Every array argument has a leading chain axis C: pf/pi [C, S, V]
@@ -555,7 +560,11 @@ def containment_keys_core(pf, pi, plf, pli, pb, pkb, nodes, name_id, ident,
     - the per-bubble min is a reshape+amin for the uniform layout
       (``alleles_per_bubble > 0``), a scatter-amin by path bubble
       otherwise (:325-332);
-    - the scatter-min by read name starts from NO_MATCH (:342)."""
+    - the scatter-min by read name starts from NO_MATCH (:342).
+
+    ``aln_offset`` is the global index of the first alignment given: a
+    data shard's keys pack global alignment indices, so the shards' tables
+    min-merge into the unsharded ones."""
     C, S, V = pf.shape
     A = nodes.shape[1]
     dev = pf.device
@@ -589,8 +598,8 @@ def containment_keys_core(pf, pi, plf, pli, pb, pkb, nodes, name_id, ident,
         member_t = member[:, :, :V].transpose(1, 2)           # [C, V, ch]
         cont_full = torch.matmul(pf, member_t) == plf_f       # [C, S, ch]
         cont_inner = torch.matmul(pi, member_t) == pli_f
-        al_idx = torch.arange(start, start + chunk, dtype=torch.int32,
-                              device=dev)
+        al_idx = torch.arange(aln_offset + start, aln_offset + start + chunk,
+                              dtype=torch.int32, device=dev)
         key = pkb + al_idx                                    # [C, S, ch]
         gate = (ident[:, start:start + chunk] * 100.0
                 > gate_mask_value)[:, None, :]
@@ -641,15 +650,25 @@ def _onehot_tensor(oh, device) -> torch.Tensor:
     return to_torch(oh, device=device)[0]
 
 
+def data_mesh(config: PhasingConfig, devices, dev: torch.device):
+    """The data-sharded projection's mesh, or None when the device-count
+    gate (``project/device.py:952-953`` of the JAX package) falls back."""
+    return gated_mesh(getattr(config, "data_shards", 1), DATA_AXIS,
+                      local_devices(devices, dev), dev, "projection")
+
+
 def containment_key_tables(inputs: ChainDeviceInputs, config: PhasingConfig,
-                           chunk: int = 1024, device="cuda"):
+                           chunk: int = 1024, device="cuda", devices=None):
     """One chain's (full, partial, gated) winner tables as SparseKeys:
     ``containment_keys_core`` at a batch of one.  Chains whose key tables
     exceed _KEY_TABLE_BUDGET run in exact bubble blocks over one upload
-    of the path tables."""
+    of the path tables (per device).  With ``config.data_shards`` > 1 and
+    that many devices in ``devices`` (every process's), the alignments
+    shard over them and the tables min-merge (``dist.step``)."""
     from ahsoka_tpu_torch.utils import substage
 
     dev = torch.device(device)
+    mesh = data_mesh(config, devices, dev)
     with substage.timed("projection.pack"):
         arrays, statics = _padded_chain_arrays(inputs, chunk,
                                                dense_onehots=False)
@@ -657,10 +676,23 @@ def containment_key_tables(inputs: ChainDeviceInputs, config: PhasingConfig,
     B_pad, N_pad, chunk, apb = statics
     B, n_real = len(inputs.bubble_ids), len(inputs.names)
     gate = float(np.float32(config.partial_identity_gate))
+    paths: Dict[torch.device, tuple] = {}
+
+    def path_tables(d: torch.device) -> tuple:
+        # the path tables, uploaded once per device (inside the caller's
+        # projection.device timer)
+        if d not in paths:
+            paths[d] = ((_onehot_tensor(pf, d), _onehot_tensor(pi, d))
+                        + to_torch(plf, pli, pb, pkb, device=d))
+        return paths[d]
+
     with substage.timed("projection.device"):
-        pf_d, pi_d = _onehot_tensor(pf, dev), _onehot_tensor(pi, dev)
-        plf_d, pli_d, pb_d, pkb_d, nodes_d, name_d, ident_d = to_torch(
-            plf, pli, pb, pkb, nodes, name_id, ident, device=dev)
+        if mesh is None:
+            alns = to_torch(nodes[None], name_id[None], ident[None],
+                            device=dev)
+        else:
+            alns = shard_alignments(mesh, nodes, name_id, ident, chunk,
+                                    len(inputs.names))
     nblocks = max(1, -(-(3 * B_pad * N_pad * 4) // _KEY_TABLE_BUDGET))
     Bb = -(-B_pad // nblocks)
     parts = []
@@ -670,13 +702,21 @@ def containment_key_tables(inputs: ChainDeviceInputs, config: PhasingConfig,
             lo, hi = b0 * apb, (b0 + bb) * apb
         else:
             lo, hi = (int(x) for x in np.searchsorted(pb, [b0, b0 + bb]))
+
+        def block(d, lo=lo, hi=hi, b0=b0):
+            pf_d, pi_d, plf_d, pli_d, pb_d, pkb_d = path_tables(d)
+            return (pf_d[None, lo:hi], pi_d[None, lo:hi], plf_d[None, lo:hi],
+                    pli_d[None, lo:hi], pb_d[None, lo:hi] - b0,
+                    pkb_d[None, lo:hi])
+
+        kw = dict(num_bubbles=bb, num_names=N_pad, chunk=chunk,
+                  alleles_per_bubble=apb)
         with substage.timed("projection.device"):
-            keys = containment_keys_core(
-                pf_d[None, lo:hi], pi_d[None, lo:hi], plf_d[None, lo:hi],
-                pli_d[None, lo:hi], (pb_d[None, lo:hi] - b0), pkb_d[None, lo:hi],
-                nodes_d[None], name_d[None], ident_d[None], gate,
-                num_bubbles=bb, num_names=N_pad, chunk=chunk,
-                alleles_per_bubble=apb)
+            if mesh is None:
+                keys = containment_keys_core(*block(dev), *alns, gate, **kw)
+            else:
+                keys = sharded_containment_keys(mesh, block, alns, gate,
+                                                **kw)
         parts.append(_compact(keys, [(min(bb, B - b0), n_real)],
                               row_offset=b0)[0])
     return tuple(
@@ -689,15 +729,21 @@ def containment_key_tables(inputs: ChainDeviceInputs, config: PhasingConfig,
 
 def containment_key_tables_many(inputs_list: Sequence[ChainDeviceInputs],
                                 config: PhasingConfig, chunk: int = 1024,
-                                device="cuda"):
+                                device="cuda", devices=None):
     """Winner tables for MANY chains: chains are padded into bucketed
     shapes, grouped by (shape, statics) signature, and each group runs
     ``containment_keys_core`` over a written-out batch axis (split by a
     device working-set budget).  Same tables as per-chain
-    ``containment_key_tables``."""
+    ``containment_key_tables``, which a data-sharded projection runs
+    chain by chain (its shards own the device axis;
+    ``project/device.py:1017-1022`` of the JAX package)."""
     from ahsoka_tpu_torch.utils import substage
 
     dev = torch.device(device)
+    if data_mesh(config, devices, dev) is not None:
+        return [containment_key_tables(i, config, chunk, device=dev,
+                                       devices=devices)
+                for i in inputs_list]
     gate = float(np.float32(config.partial_identity_gate))
     with substage.timed("projection.pack"):
         padded = [_padded_chain_arrays(i, chunk) for i in inputs_list]

@@ -7,7 +7,10 @@ matrix.  Both scoring modes are ported with their row-multiplicity
 weights (collapsed matrices): ``_score_core_wh`` (the default,
 WhatsHap's published scoring) and ``_score_core``.  Chains are batched
 per (padded shape, allele count, weighted) group on a written-out chain
-axis.
+axis.  With ``data_shards`` > 1 and enough devices, a chain's pair
+matrix is scored in row blocks over a mesh (``_score_rows_core[_wh]``,
+``dist/step.sharded_score_pairs``); every unsharded call is the block of
+all rows.
 
 The JAX package computes these matmuls at ``Precision.HIGHEST``; the
 port runs them in true float32 (``device.set_true_fp32``: no TF32), and
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.dist.mesh import DATA_AXIS, gated_mesh, local_devices
+from ahsoka_tpu_torch.dist.step import sharded_score_pairs
 from ahsoka_tpu_torch.score.pairwise import (_EPS_CLIP, AlleleMatrix,
                                        estimate_error_rate)
 from ahsoka_tpu_torch.utils import substage
@@ -41,24 +46,41 @@ def _allele_counts(onehots, mult):
                         for oh in onehots], dim=2)
 
 
-def _finish(scores, overlap, min_overlap: int):
+def _masks(alleles, num_alleles: int):
+    """(covered mask, one-hot per allele) of int alleles, float32."""
+    return ((alleles >= 0).to(torch.float32),
+            [(alleles == a).to(torch.float32) for a in range(num_alleles)])
+
+
+def _row_eye(rows: int, full: int, row0: int, device) -> torch.Tensor:
+    """[rows, full] diagonal of the row block starting at global row
+    ``row0``."""
+    r = torch.arange(rows, device=device)[:, None] + row0
+    return r == torch.arange(full, device=device)[None, :]
+
+
+def _finish(scores, overlap, min_overlap: int, row0: int):
     scores = torch.where(overlap < min_overlap, torch.zeros_like(scores),
                          scores)
-    eye = torch.eye(scores.shape[1], dtype=torch.bool,
-                    device=scores.device)
+    eye = _row_eye(scores.shape[1], scores.shape[2], row0, scores.device)
     return torch.where(eye, torch.zeros_like(scores), scores)
 
 
-def _score_core(alleles, eps, *, num_alleles: int, ploidy: int,
-                min_overlap: int, mult=None):
-    """[C, R, P] int alleles (-1 uncovered and padding), eps [C] ->
-    [C, R, R] float32 ("fresh" mode, score/device.py:26-69)."""
-    mask = (alleles >= 0).to(torch.float32)
-    onehots = [(alleles == a).to(torch.float32) for a in range(num_alleles)]
+def _score_rows_core(rows, full, eps, row0, *, num_alleles: int,
+                     ploidy: int, min_overlap: int, mult=None):
+    """"fresh" mode (score/device.py:129-168) for the [C, Rb, R] row block
+    whose global rows start at ``row0``: [C, Rb, P] and [C, R, P] int
+    alleles (-1 uncovered and padding), eps [C] -> float32.  The
+    per-position statistics come from the full matrix (row-weighted by
+    ``mult`` [C, R] when given), so the rows of a block are the rows of
+    the whole matrix; ``_score_core`` is the block of every row."""
+    mask_f, oh_f = _masks(full, num_alleles)
+    mask_r, oh_r = (mask_f, oh_f) if rows is full \
+        else _masks(rows, num_alleles)
     eps = eps[:, None]
     d_same = torch.clamp(2.0 * eps * (1.0 - eps), _EPS_CLIP,
                          0.5 - _EPS_CLIP)                     # [C, 1]
-    counts = _allele_counts(onehots, mult)                    # [C, P, A]
+    counts = _allele_counts(oh_f, mult)                       # [C, P, A]
     totals = torch.clamp(counts.sum(dim=2), min=1.0)
     freqs = counts / totals[:, :, None]
     k = ploidy
@@ -68,21 +90,23 @@ def _score_core(alleles, eps, *, num_alleles: int, ploidy: int,
                          _EPS_CLIP, 1.0 - _EPS_CLIP)
     w_agree = torch.log((1.0 - d_same) / (1.0 - d_diff))      # [C, P]
     w_dis = torch.log(d_same / d_diff)
-    scores = _bmm_t(mask * w_dis[:, None, :], mask)
+    scores = _bmm_t(mask_r * w_dis[:, None, :], mask_f)
     diff_w = (w_agree - w_dis)[:, None, :]
-    for oh in onehots:
-        scores = scores + _bmm_t(oh * diff_w, oh)
-    overlap = _bmm_t(mask, mask)
-    return _finish(scores, overlap, min_overlap)
+    for o_r, o_f in zip(oh_r, oh_f):
+        scores = scores + _bmm_t(o_r * diff_w, o_f)
+    overlap = _bmm_t(mask_r, mask_f)
+    return _finish(scores, overlap, min_overlap, row0)
 
 
-def _score_core_wh(alleles, p_s, *, num_alleles: int, ploidy: int,
-                   min_overlap: int, mult=None):
-    """[C, R, P] int alleles (-1 uncovered and padding), p_s [C] ->
-    [C, R, R] float32 (WhatsHap scoring, score/device.py:72-126)."""
-    mask = (alleles >= 0).to(torch.float32)
-    onehots = [(alleles == a).to(torch.float32) for a in range(num_alleles)]
-    counts = _allele_counts(onehots, mult)                    # [C, P, A]
+def _score_rows_core_wh(rows, full, p_s, row0, *, num_alleles: int,
+                        ploidy: int, min_overlap: int, mult=None):
+    """WhatsHap scoring (score/device.py:171-217) for the [C, Rb, R] row
+    block at global row ``row0``; the contract of ``_score_rows_core``,
+    with the estimated p_s [C] as the scalar."""
+    mask_f, oh_f = _masks(full, num_alleles)
+    mask_r, oh_r = (mask_f, oh_f) if rows is full \
+        else _masks(rows, num_alleles)
+    counts = _allele_counts(oh_f, mult)                       # [C, P, A]
 
     # greedy ML allocation of `ploidy` haplotype slots to alleles; argmax
     # keeps the first maximum, like jnp.argmax
@@ -106,11 +130,11 @@ def _score_core_wh(alleles, p_s, *, num_alleles: int, ploidy: int,
     ps = p_s[:, None]
     pd = differ * (1.0 - ps) + (1.0 - differ) * ps
 
-    overlap = _bmm_t(mask, mask)
+    overlap = _bmm_t(mask_r, mask_f)
     agree = torch.zeros_like(overlap)
-    for oh in onehots:
-        agree = agree + _bmm_t(oh, oh)
-    pd_sum = _bmm_t(mask * pd[:, None, :], mask)
+    for o_r, o_f in zip(oh_r, oh_f):
+        agree = agree + _bmm_t(o_r, o_f)
+    pd_sum = _bmm_t(mask_r * pd[:, None, :], mask_f)
 
     ps = p_s[:, None, None]
     ov = torch.clamp(overlap, min=1.0)
@@ -118,7 +142,25 @@ def _score_core_wh(alleles, p_s, *, num_alleles: int, ploidy: int,
     d = overlap - agree
     scores = (d * torch.log(ps / p_d)
               + agree * torch.log((1.0 - ps) / (1.0 - p_d)))
-    return _finish(scores, overlap, min_overlap)
+    return _finish(scores, overlap, min_overlap, row0)
+
+
+def _score_core(alleles, eps, *, num_alleles: int, ploidy: int,
+                min_overlap: int, mult=None):
+    """[C, R, P] int alleles (-1 uncovered and padding), eps [C] ->
+    [C, R, R] float32 ("fresh" mode, score/device.py:26-69)."""
+    return _score_rows_core(alleles, alleles, eps, 0,
+                            num_alleles=num_alleles, ploidy=ploidy,
+                            min_overlap=min_overlap, mult=mult)
+
+
+def _score_core_wh(alleles, p_s, *, num_alleles: int, ploidy: int,
+                   min_overlap: int, mult=None):
+    """[C, R, P] int alleles (-1 uncovered and padding), p_s [C] ->
+    [C, R, R] float32 (WhatsHap scoring, score/device.py:72-126)."""
+    return _score_rows_core_wh(alleles, alleles, p_s, 0,
+                               num_alleles=num_alleles, ploidy=ploidy,
+                               min_overlap=min_overlap, mult=mult)
 
 
 def _padded_alleles(matrix: AlleleMatrix) -> np.ndarray:
@@ -167,24 +209,43 @@ def _core(config: PhasingConfig):
     return _score_core_wh if config.score_mode == "whatshap" else _score_core
 
 
-def _check_unsharded(config: PhasingConfig) -> None:
-    if int(getattr(config, "data_shards", 1)) > 1:
-        raise NotImplementedError(
-            "row-sharded scoring (data_shards > 1) is not ported yet: "
-            "ROADMAP queue 1 item 11")
+def _row_mesh(config: PhasingConfig, R_pad: int, mult, devices,
+              dev: torch.device):
+    """The row-sharded scoring's mesh, or None when the JAX package's
+    gate (score/device.py:318-328) falls back: too few devices, R_pad not
+    a multiple of the shard count, or row weights (collapsed matrices
+    score unsharded)."""
+    shards = max(int(getattr(config, "data_shards", 1)), 1)
+    reason = None
+    if mult is not None:
+        reason = "row-weighted (collapsed) matrix"
+    elif R_pad % shards:
+        reason = f"{R_pad} padded rows"
+    return gated_mesh(shards, DATA_AXIS, local_devices(devices, dev), dev,
+                      "scoring", reason=reason)
 
 
 def score_pairs_device(matrix: AlleleMatrix, config: PhasingConfig,
-                       error_rate=None, mult=None,
-                       device="cuda") -> np.ndarray:
-    """One chain's [R, R] float64 pair scores (batch of one)."""
-    _check_unsharded(config)
+                       error_rate=None, mult=None, device="cuda",
+                       devices=None) -> np.ndarray:
+    """One chain's [R, R] float64 pair scores (batch of one).  With
+    ``config.data_shards`` > 1 and the gate passed, the pair matrix's row
+    blocks are scored over the mesh (``dist.step.sharded_score_pairs``)."""
+    dev = torch.device(device)
     scalar = _chain_scalar(matrix, config, error_rate, mult=mult)
-    return _score_batch([_padded_alleles(matrix)], [scalar],
-                        None if mult is None else [mult],
-                        [matrix.alleles.shape[0]],
-                        max(matrix.num_alleles, 2), config,
-                        torch.device(device))[0]
+    padded = _padded_alleles(matrix)
+    R = matrix.alleles.shape[0]
+    mesh = _row_mesh(config, padded.shape[0], mult, devices, dev)
+    if mesh is not None:
+        out = sharded_score_pairs(mesh, padded, scalar,
+                                  num_alleles=max(matrix.num_alleles, 2),
+                                  ploidy=config.ploidy,
+                                  min_overlap=config.min_overlap,
+                                  mode=config.score_mode)
+        return out[:R, :R].cpu().numpy().astype(np.float64)
+    return _score_batch([padded], [scalar],
+                        None if mult is None else [mult], [R],
+                        max(matrix.num_alleles, 2), config, dev)[0]
 
 
 def _score_batch(padded, scalars, mults, rows, num_alleles: int,
@@ -212,16 +273,22 @@ _BATCH_DEVICE_BYTES = 1 << 30
 
 
 def score_pairs_device_many(matrices, config: PhasingConfig, mults=None,
-                            device="cuda"):
+                            device="cuda", devices=None):
     """Score MANY chains in few device calls: grouped by padded shape,
     allele count and weighting, one batched call per group (split by a
     device working-set budget).  Same values as per-chain
     ``score_pairs_device``.  ``mults`` is an optional per-chain list of
-    row-multiplicity vectors (None entries = unweighted)."""
-    _check_unsharded(config)
+    row-multiplicity vectors (None entries = unweighted).  Row-sharded
+    scoring keeps the per-chain path (its shards own the device axis;
+    score/device.py:363-370 of the JAX package)."""
     dev = torch.device(device)
     if mults is None:
         mults = [None] * len(matrices)
+    if gated_mesh(getattr(config, "data_shards", 1), DATA_AXIS,
+                  local_devices(devices, dev), dev, "scoring") is not None:
+        return [score_pairs_device(m, config, mult=mu, device=dev,
+                                   devices=devices)
+                for m, mu in zip(matrices, mults)]
     with substage.timed("scoring.pack"):
         padded = [_padded_alleles(m) for m in matrices]
     with substage.timed("scoring.host_stats"):

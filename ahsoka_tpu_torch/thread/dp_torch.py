@@ -12,7 +12,9 @@ Dispatch per group: a group whose state space exceeds ``dp_beam_width``
 (``thread/dp_kernels.py``) ploidy 2 takes the diploid kernels and ploidy
 1 and 3-5 the general-ploidy ones, for every group whatever its size.
 On CUDA the wrappers launch the hand-written kernels; on the CPU they run
-their plain PyTorch versions, which take any ploidy.
+their plain PyTorch versions, which take any ploidy.  With
+``chain_shards`` > 1 a group's chains split over a mesh of devices and
+each shard runs the same dispatch on its chains.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 
 from ahsoka_tpu_torch.cluster.postprocess import DPInputs
 from ahsoka_tpu_torch.config import PhasingConfig
+from ahsoka_tpu_torch.dist.mesh import CHAIN_AXIS, gated_mesh, local_devices
+from ahsoka_tpu_torch.dist.step import sharded_thread_states
 from ahsoka_tpu_torch.thread.states import (full_state_counts,
                                       full_state_validity, state_tuples)
 from ahsoka_tpu_torch.utils import substage
@@ -140,12 +144,17 @@ def thread_states(ca, nc, co, cs, ge, config: PhasingConfig, *,
 
 def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
                           bucket: int = 128, chain_configs=None,
-                          device="cuda") -> List[List[Tuple[int, ...]]]:
+                          device="cuda", devices=None
+                          ) -> List[List[Tuple[int, ...]]]:
     """Thread many chains with one DP call per (P_pad, A, ploidy) group;
     identical paths to ``dp_jax.thread_chains_batched`` (same padding and
     argmin tie-breaks).  ``chain_configs`` carries each dp's effective
-    config (per-chain ploidy overrides)."""
+    config (per-chain ploidy overrides).  With ``chain_shards`` > 1 and
+    that many devices in ``devices`` (every process's), a group's chains
+    split over a mesh (``dist.step.sharded_thread_states``); beam groups
+    stay unsharded (``dp_jax.py:439-443``)."""
     dev = torch.device(device)
+    devs = local_devices(devices, dev)
     if chain_configs is None:
         chain_configs = [config] * len(dps)
     groups: dict = {}
@@ -163,11 +172,20 @@ def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
         tuples = state_tuples(2 * k, k)
         with substage.timed("threading.pack"):
             arrays = _pack_group(dps, members, P_pad)
-        with substage.timed("threading.upload"):
-            ca, nc, co, cs, ge = to_torch(*arrays, device=dev)
+        mesh = gated_mesh(
+            cfg.chain_shards, CHAIN_AXIS, devs, dev, "threading DP",
+            reason=("beam-pruned group" if _beam_width_for(cfg, len(tuples))
+                    else None))
+        if mesh is None:
+            with substage.timed("threading.upload"):
+                ca, nc, co, cs, ge = to_torch(*arrays, device=dev)
         with substage.timed("threading.kernel"):
-            states = thread_states(ca, nc, co, cs, ge, cfg, ploidy=k,
-                                   num_alleles=A)
+            if mesh is None:
+                states = thread_states(ca, nc, co, cs, ge, cfg, ploidy=k,
+                                       num_alleles=A)
+            else:
+                states = sharded_thread_states(mesh, arrays, cfg, ploidy=k,
+                                               num_alleles=A)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         with substage.timed("threading.fetch"):
@@ -182,10 +200,11 @@ def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
 
 
 def thread_chain_device(dp: DPInputs, config: PhasingConfig,
-                        bucket: int = 128, device="cuda"
+                        bucket: int = 128, device="cuda", devices=None
                         ) -> List[Tuple[int, ...]]:
     """One chain (the keep-going per-chain retry): the batched DP at a
     batch of one, same padding as ``dp_jax.thread_chain_device``."""
     if dp.num_positions == 0:
         return []
-    return thread_chains_batched([dp], config, bucket, device=device)[0]
+    return thread_chains_batched([dp], config, bucket, device=device,
+                                 devices=devices)[0]

@@ -64,7 +64,27 @@ JAX package (``ahsoka_tpu``):
    phased, all three kernels launched, the beam taken by every hexaploid
    DP group, banded scoring by at least one chain, paths identical to a
    plain CPU re-threading (the beam groups included), switch error below
-   0.02.
+   0.02;
+9. the sharded layouts (``dist/``), on the inputs and against the outputs
+   of phases 5 and 8 (``--phases`` with ``sharded`` runs config3c and
+   config5s too):
+   - NCCL at world size 1: ``all_reduce(MIN)`` keeps int32 and NO_MATCH,
+     the uneven row gather is exact;
+   - the mesh layout on config3c: ``data_shards = chain_shards = 2`` over
+     ``devices = [cuda:0, cuda:0]`` under an NCCL group of world size 1
+     (the projection's min-merge and the row and state gathers take
+     their NCCL calls, counted); result, bubbleinfo and every chain file
+     byte-equal to phase 5's, ``dpk_forward`` and ``dpk_backtrace``
+     launched once per non-empty shard of each DP group, paths identical
+     to a plain CPU re-threading; the largest |d| between the run's
+     row-sharded and unsharded scores on the card, and on a seeded
+     2,048-read chain, where it must be 0;
+   - the chain layout on config5s: ``--process-sharding chains``, 2
+     processes on the one card with 4 host threads each, a gloo group
+     over localhost (``dist/sim.py``): merged result, bubbleinfo and every
+     chain file byte-equal to phase 8's, no failed chain; per rank the
+     chains owned and failed, kernel launches, phase and cluster-editing
+     seconds and peak device memory.
 
 Each end-to-end run sets the kernels' launch counts, and the counts of
 beam groups and banded chains run on the card, to 0 just before it and
@@ -83,7 +103,8 @@ version, both times (at config4's and config3c's DP shapes), its
 roofline bound (``bound``; for a backtrace also the bytes its tiles move)
 and ``library_ms`` null, and the ``{"beam": ...}``, ``{"banded": ...}``,
 ``{"config5s": ...}`` and ``{"dpk_forward_clusters": ...}`` lines with
-the times and counts of phases 2 and 6-8.
+the times and counts of phases 2 and 6-8, and the ``{"sharded": ...}``
+line of phase 9.
 """
 
 from __future__ import annotations
@@ -609,6 +630,7 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     log(f"{name}: {len(plan)} chains (bubbles, ploidy) "
         f"{sorted(set(plan))}, {spec.total_reads} GAF records generated "
         f"in {time.perf_counter() - t0:.1f} s")
+    pmap = None
     if ploidy_map:
         pmap = _ploidy_map_from_truth(gfa, truth, cfg)
         log(f"{name}: ploidy map from the planted truth {pmap}")
@@ -676,6 +698,8 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     if banded and launches["banded"] == 0:
         raise AssertionError(f"{name}: no chain took banded scoring")
     return {"launches": launches, "wall": wall, "beam_groups": groups,
+            "config": cfg, "ploidy_map": pmap, "work": work,
+            "chains": len(plan),
             "dp_kernel_device_ms": kernel_ms,
             "stage_seconds": stages, "accuracy": acc,
             "clustering_solver_cpu_s": m["stage_seconds"].get(
@@ -856,8 +880,190 @@ def phase_banded(dev) -> dict:
             "s": card_s, "cpu_s": cpu_s}
 
 
+# ---------------------------------------------------------------- phase 9
+def _nccl_self_check(dev) -> None:
+    """The collectives on the card at world size 1: all_reduce(MIN) keeps
+    int32 and NO_MATCH, and the uneven row gather is exact."""
+    import torch
+
+    from ahsoka_tpu_torch.dist.mesh import gather_rows, min_merge
+
+    no_match = 2 ** 31 - 1
+    a = torch.tensor([[5, no_match, 7]], dtype=torch.int32, device=dev)
+    b = torch.tensor([[9, no_match, 3]], dtype=torch.int32, device=dev)
+    out = min_merge([a, b], torch.full_like(a, no_match))
+    if out.dtype != torch.int32 or out.cpu().tolist() != [[5, no_match, 3]]:
+        raise AssertionError(f"NCCL min-merge wrong: {out}")
+    rows = gather_rows([torch.ones((2, 3), device=dev),
+                        torch.zeros((1, 3), device=dev)],
+                       torch.empty((0, 3), device=dev))
+    if rows.cpu().tolist() != [[1.0] * 3] * 2 + [[0.0] * 3]:
+        raise AssertionError(f"NCCL row gather wrong: {rows}")
+
+
+def _expected_shard_launches(th, shards: int) -> int:
+    """Forward (and backtrace) launches of a chain-sharded DP: one per
+    non-empty shard of each non-beam DP group."""
+    from ahsoka_tpu_torch.thread.dp_torch import (_beam_width_for,
+                                                  _bucket_positions)
+    from ahsoka_tpu_torch.thread.states import max_states
+
+    groups: dict = {}
+    for dp, c in zip(th["dps"], th["configs"]):
+        if dp.num_positions and not _beam_width_for(c, max_states(c.ploidy)):
+            key = (_bucket_positions(dp.num_positions),
+                   dp.genotypes.shape[1], c.ploidy)
+            groups[key] = groups.get(key, 0) + 1
+    return sum(min(n, shards) for n in groups.values())
+
+
+def phase_sharded_mesh(dev, c3) -> dict:
+    """config3c in the mesh layout (2 x 2 over one card, NCCL at world
+    size 1) against phase 5's unsharded run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ahsoka_tpu_torch.device import synchronize
+    from ahsoka_tpu_torch.dist.sim import (compare_outputs, free_port,
+                                           output_names)
+    from ahsoka_tpu_torch.pipeline import run_phase
+    from ahsoka_tpu_torch.score import device as score_device
+    from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
+    from ahsoka_tpu_torch.utils import substage
+
+    work, cfg = c3["work"], c3["config"]
+    gfa, gaf = (os.path.join(work, f"config3c.{x}") for x in ("gfa", "gaf"))
+    golden, stem = os.path.join(work, "run"), os.path.join(work, "mesh")
+    sharded = dataclasses.replace(cfg, data_shards=2, chain_shards=2)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    scored, calls = [], {"all_reduce": 0, "all_gather": 0}
+    real_score = score_device.score_pairs_device
+    real_coll = {n: getattr(dist, n) for n in calls}
+
+    def score_spy(matrix, config, *a, mult=None, **k):
+        out = real_score(matrix, config, *a, mult=mult, **k)
+        scored.append((matrix, mult, out))
+        return out
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real_coll[name](*a, **k)
+        return call
+
+    try:
+        _nccl_self_check(dev)
+        score_device.score_pairs_device = score_spy
+        for n in calls:
+            setattr(dist, n, counted(n))
+        substage.drain()
+        _reset_path_counts()
+        t0 = time.perf_counter()
+        art = run_phase(gfa, gaf, stem, sharded, device=dev,
+                        devices=[dev, dev])
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = _path_counts()
+    finally:
+        score_device.score_pairs_device = real_score
+        for n, fn in real_coll.items():
+            setattr(dist, n, fn)
+        dist.destroy_process_group()
+    with open(f"{stem}-metrics.json") as fh:
+        m = json.load(fh)
+    if m["chains_failed"] or m["chains_phased"] != c3["chains"]:
+        raise AssertionError(f"mesh config3c: {m['chains_phased']} phased, "
+                             f"{m['chains_failed']} failed")
+    bad = compare_outputs(golden, stem)
+    if bad:
+        raise AssertionError(f"mesh config3c differs from the unsharded "
+                             f"run: {bad[:5]}")
+    th = art.threading
+    want = _expected_shard_launches(th, 2)
+    if not (launches["dpk_forward"] == launches["dpk_backtrace"] == want
+            and want > 0):
+        raise AssertionError(f"mesh config3c: launches {launches}, "
+                             f"expected {want} per kernel")
+    if not (calls["all_reduce"] and calls["all_gather"]):
+        raise AssertionError(f"mesh config3c: NCCL calls {calls}")
+    cpu = thread_chains_batched(th["dps"], cfg, chain_configs=th["configs"],
+                                device="cpu")
+    if cpu != th["paths"]:
+        raise AssertionError("mesh config3c: paths differ from the plain "
+                             "CPU re-threading")
+    # the run's scores, sharded or fallen back, against unsharded ones
+    row_sharded = [(mx, o) for mx, mu, o in scored if mu is None]
+    diff = max((float(np.abs(o - real_score(mx, cfg, device=dev)).max())
+                for mx, o in row_sharded), default=None)
+    seeded = banded_matrix(2048, 400, seed=5)
+    one = real_score(seeded, cfg, device=dev)
+    two = real_score(seeded, sharded, device=dev, devices=[dev, dev])
+    seeded_diff = float(np.abs(one - two).max())
+    if seeded_diff != 0.0:
+        raise AssertionError(f"mesh config3c: row-block scores of a seeded "
+                             f"2,048-read chain differ from unsharded by "
+                             f"{seeded_diff}")
+    stages = m["stage_seconds"]
+    out = {"wall": wall, "phase_s": stages["phase"],
+           "dp_device_window_s": stages.get("dp_device_window"),
+           "unsharded_phase_s": c3["stage_seconds"]["phase"],
+           "unsharded_dp_device_window_s":
+               c3["stage_seconds"].get("dp_device_window"),
+           "launches": launches, "expected_launches_per_kernel": want,
+           "nccl_calls": calls,
+           "files_byte_equal": len(output_names(golden)),
+           "chains_scored": len(scored),
+           "chains_row_sharded": len(row_sharded),
+           "max_abs_score_diff_run": diff,
+           "max_abs_score_diff_seeded_2048": seeded_diff}
+    log(f"mesh config3c (2 x 2 over [{dev}, {dev}], NCCL world 1): "
+        + json.dumps(out))
+    return out
+
+
+def phase_sharded_chains(c5) -> dict:
+    """config5s in the chain layout (2 processes, 4 threads each, one
+    card) against phase 8's single-process run."""
+    from ahsoka_tpu_torch.dist.sim import (compare_outputs, output_names,
+                                           run_chains)
+
+    work = c5["work"]
+    gfa, gaf = (os.path.join(work, f"config5s.{x}") for x in ("gfa", "gaf"))
+    pmap_path = os.path.join(work, "config5s.pmap.json")
+    with open(pmap_path, "w") as fh:
+        json.dump({str(c): int(k) for c, k in c5["ploidy_map"].items()}, fh)
+    golden = os.path.join(work, "run")
+    row = run_chains(gfa, gaf, os.path.join(WORK, "config5s_chains"), 2,
+                     "cuda", 4, ploidy_map=pmap_path, timeout=900)
+    bad = compare_outputs(golden, row["outstem"])
+    if bad:
+        raise AssertionError(f"chains config5s differs from the single-"
+                             f"process run: {bad[:5]}")
+    ranks = row["per_rank"]
+    owned = [r["chains_owned"] for r in ranks]
+    if any(r["chains_failed"] for r in ranks) or sum(owned) != c5["chains"] \
+            or not all(owned):
+        raise AssertionError(f"chains config5s: per rank {ranks}")
+    out = {"nproc": 2, "threads": 4, "wall": row["wall_s"],
+           "files_byte_equal": len(output_names(golden)),
+           "per_rank": ranks,
+           "single_process": {
+               "phase_s": c5["stage_seconds"]["phase"],
+               "clustering_solver_thread_s": c5["clustering_solver_cpu_s"],
+               "threads": c5["config"].threads}}
+    log("chains config5s (2 processes x 4 threads, one card): "
+        + json.dumps(out))
+    return out
+
+
 PHASES = ("env", "kernels", "golden", "config4s", "config3c", "mixed",
-          "beam", "banded", "config5s")
+          "beam", "banded", "config5s", "sharded")
 
 
 def main(argv=None) -> int:
@@ -866,11 +1072,16 @@ def main(argv=None) -> int:
                     help=f"comma list of {','.join(PHASES)} for a partial "
                          "run (prints no result line)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     phases = (set(PHASES) if args.phases == "all"
               else set(args.phases.split(",")))
     unknown = phases - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    partial = phases != set(PHASES)
+    if "sharded" in phases:
+        # the sharded runs are held to these runs' outputs
+        phases |= {"config3c", "config5s"}
 
     import torch
 
@@ -892,7 +1103,12 @@ def main(argv=None) -> int:
         no_reference_modules("config5s")
     beam = phase_beam(dev) if "beam" in phases else None
     banded = phase_banded(dev) if "banded" in phases else None
-    if phases != set(PHASES):
+    sharded = None
+    if "sharded" in phases:
+        sharded = {"mesh_config3c": phase_sharded_mesh(dev, e2e["config3c"]),
+                   "chains_config5s": phase_sharded_chains(e2e["config5s"])}
+        no_reference_modules("the sharded runs")
+    if partial:
         log("partial run: no result line")
         return 0
 
@@ -919,6 +1135,8 @@ def main(argv=None) -> int:
         k: c5[k] for k in ("launches", "beam_groups", "wall",
                            "dp_kernel_device_ms", "clustering_solver_cpu_s",
                            "stage_seconds")}}))
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"sharded": sharded}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ The DP kernels must equal their plain versions exactly (through the
 diploid and the general-ploidy wrappers, at the edges of the k <= 2
 forward's staged tile, on all-ties batches, and the backtrace over
 several tiles at every ploidy), and so must the beam DP; projection key tables exactly; dense scores within rtol = atol
-= 1e-4 (float32 matmuls summed in another order on the card); banded
+= 1e-4 (float32 matmuls summed in another order on the card), and
+row-sharded ones exactly equal to the unsharded ones on the card; banded
 edges equal and in order, weights within rtol = atol = 1e-5; results
 byte-equal to the goldens."""
 
@@ -371,3 +372,45 @@ def test_cuda_banded_matches_cpu(cuda_device, mode, block):
     np.testing.assert_array_equal(gu, cu)
     np.testing.assert_array_equal(gv, cv)
     np.testing.assert_allclose(gw, cw, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_chain_sharded_dp_matches_unsharded(cuda_device):
+    """The chain-sharded DP over two shards of one card: each shard
+    launches the forward and backtrace kernels on its chains, and the
+    states are the unsharded kernels' (and the CPU's)."""
+    from ahsoka_tpu_torch.config import PhasingConfig as TorchConfig
+    from ahsoka_tpu_torch.thread import dp_kernels
+
+    for k, clusters in ((2, 5), (4, 9)):
+        dps = [random_dp_inputs(P=24, ploidy=k, num_clusters=clusters,
+                                seed=50 + i) for i in range(9)]
+        cfg = TorchConfig(ploidy=k)
+        want = dp_torch.thread_chains_batched(dps, cfg, device=cuda_device)
+        dp_kernels.reset_launch_counts()
+        got = dp_torch.thread_chains_batched(
+            dps, TorchConfig(ploidy=k, chain_shards=2), device=cuda_device,
+            devices=[cuda_device, cuda_device])
+        launches = dp_kernels.launch_counts()
+        forward = "dpk_forward_warp" if k <= ms.SMALL_PLOIDY else "dpk_forward"
+        assert (launches[forward], launches["dpk_backtrace"]) == (2, 2)
+        assert got == want == dp_torch.thread_chains_batched(dps, cfg,
+                                                             device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["whatshap", "fresh"])
+def test_cuda_row_sharded_scoring_matches_unsharded(cuda_device, mode):
+    """Row blocks scored on two shards of one card against the unsharded
+    scores on the card (the largest difference is printed): exactly
+    equal, as on the CPU."""
+    from ahsoka_tpu_torch.config import PhasingConfig as TorchConfig
+    from ahsoka_tpu_torch.score.device import score_pairs_device
+
+    m = tetraploid_matrix(7, 400, 60)
+    cfg = TorchConfig(ploidy=4, score_mode=mode)
+    single = score_pairs_device(m, cfg, device=cuda_device)
+    sharded = score_pairs_device(
+        m, TorchConfig(ploidy=4, score_mode=mode, data_shards=2),
+        device=cuda_device, devices=[cuda_device, cuda_device])
+    print(f"row-sharded vs unsharded on the card ({mode}): max |d| "
+          f"{float(np.abs(sharded - single).max())}")
+    assert np.array_equal(sharded, single)

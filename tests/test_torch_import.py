@@ -19,6 +19,8 @@ import ahsoka_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
                                                "ahsoka_tpu_torch.")
          if not m.name.endswith("__main__")]
+assert {"ahsoka_tpu_torch.dist.mesh", "ahsoka_tpu_torch.dist.step",
+        "ahsoka_tpu_torch.dist.sim"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -37,7 +39,8 @@ print(len(names), loaded_reference_modules(sys.modules))
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every port module and chip_smoke imported, golden_tetra phased on
+    """Every port module (the sharded layouts' ``dist/`` included) and
+    chip_smoke imported, golden_tetra phased on
     the CPU and only-bubbles run on golden_diploid, in a fresh process:
     no jax, no ahsoka_tpu and no ahsoka_tpu.* module was loaded, and the
     outputs equal the committed ones."""
@@ -126,11 +129,40 @@ def test_wrappers_check_dtype_shape_contiguity():
     ["--num-processes", "2"], ["--data-shards", "2"],
     ["--chain-shards", "2"], ["--process-sharding", "chains"],
     ["--backend", "host"]])
-def test_cli_unported_flags_raise(tmp_path, argv):
+def test_cli_unported_flags_raise(tmp_path, argv, monkeypatch):
+    """Only ``--backend host`` still raises NotImplementedError (the JAX
+    package keeps the host oracle).  The sharding flags are ported: on
+    one CPU device they phase golden_diploid to the committed result, and
+    ``--num-processes 2`` starts the process group through
+    ``dist.mesh.initialize_distributed`` (recorded here, not started)."""
     from ahsoka_tpu_torch.cli.main import main
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["phase", "-g", "x.gfa", "-a", "x.gaf", "-o",
-              str(tmp_path / "o"), "--device", "cpu"] + argv)
+    from ahsoka_tpu_torch.dist import mesh
+
+    if argv[0] == "--backend":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(["phase", "-g", "x.gfa", "-a", "x.gaf", "-o",
+                  str(tmp_path / "o"), "--device", "cpu"] + argv)
+        return
+    started = []
+    monkeypatch.setattr(mesh, "initialize_distributed",
+                        lambda *a, **k: started.append((a, k)))
+    data = os.path.join(REPO, "tests", "data")
+    gaf = tmp_path / "golden_diploid.gaf"
+    gaf.write_bytes(open(os.path.join(data, "golden_diploid.gaf"),
+                         "rb").read())
+    assert main(["phase", "-g", os.path.join(data, "golden_diploid.gfa"),
+                 "-a", str(gaf), "-o", str(tmp_path / "o"), "--device",
+                 "cpu", "--coordinator", "localhost:1", "--process-id",
+                 "1"] + argv) == 0
+    with open(tmp_path / "o-result.txt", "rb") as a, \
+            open(os.path.join(data, "golden_diploid-result.txt"), "rb") as b:
+        assert a.read() == b.read()
+    if argv[0] == "--num-processes":
+        assert started == [((), dict(coordinator="localhost:1",
+                                     num_processes=2, process_id=1,
+                                     backend="gloo"))]
+    else:
+        assert started == []
 
 
 def test_beam_dp_raises_not_implemented():

@@ -99,6 +99,15 @@ def test_cluster_editing_identical(weighted, ploidy):
 
 
 def test_sharded_scoring_raises():
+    """Row-sharded scoring is ported: data_shards=2 no longer raises.  On
+    one CPU device the gate falls back; over two it scores row blocks;
+    both equal the unsharded scores exactly."""
+    mats = _mats()[:2]
+    want = tscore.score_pairs_device_many(mats, PhasingConfig(),
+                                          device="cpu")
     cfg = dataclasses.replace(PhasingConfig(), data_shards=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tscore.score_pairs_device_many(_mats()[:1], cfg, device="cpu")
+    for devices in (None, ["cpu", "cpu"]):
+        got = tscore.score_pairs_device_many(mats, cfg, device="cpu",
+                                             devices=devices)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
