@@ -14,9 +14,11 @@ as one device), and fall back to the unsharded path with fewer devices,
 as the JAX package does.  ``--num-processes`` > 1
 starts a torch.distributed process group (``--coordinator``,
 ``--process-id``): NCCL for the mesh layout on CUDA, gloo otherwise.
-``--backend host`` is accepted by the parser and raises
-NotImplementedError: the JAX package keeps the host oracle.  Ploidy 1-6
-(ploidy 6 with ``--dp-beam-width``) runs on both devices.
+``--backend host`` runs the numpy oracle chain by chain (host readsets,
+pair scores, cluster editing and DP; readset debug files always
+written); ``--device`` is still resolved first, so a bare run without a
+card raises there too.  Ploidy 1-6 (ploidy 6 with ``--dp-beam-width``)
+runs on both devices.
 """
 
 from __future__ import annotations
@@ -117,13 +119,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _unsupported(args) -> Optional[str]:
-    if args.backend != "jax":
-        return ("--backend host: the host oracle is ahsoka-tpu's "
-                "--backend host; the port runs the device pipeline")
-    return None
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "only-bubbles":
@@ -131,9 +126,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         run_only_bubbles(args.graph, args.output)
         return 0
     if args.command == "phase":
-        why = _unsupported(args)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         from ahsoka_tpu_torch.pipeline import run_phase
         chains = args.process_sharding == "chains"
         if args.num_processes and args.num_processes > 1:
@@ -152,7 +144,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 ploidy_map = {int(c): int(k)
                               for c, k in json.load(fh).items()}
         config = dataclasses.replace(
-            PhasingConfig(), ploidy=args.ploidy, ploidy_map=ploidy_map,
+            PhasingConfig(), ploidy=args.ploidy, backend=args.backend,
+            ploidy_map=ploidy_map,
             use_genotypes=not args.no_genotypes,
             genotype_prior=args.genotype_prior,
             max_coverage=args.max_coverage, threads=args.threads,

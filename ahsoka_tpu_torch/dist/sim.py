@@ -1,7 +1,7 @@
 """Multi-process runs of the port's phase pipeline, compared byte for byte
 with one process (the port's counterpart of ``scripts/multiproc_sim.py``).
 
-    python -m ahsoka_tpu_torch.dist.sim [--nproc 2] [--device cpu|cuda]
+    python -m ahsoka_tpu_torch.dist.sim [--nproc 2] [--device cuda|cpu]
     python -m ahsoka_tpu_torch.dist.sim --mode chains --sweep 1 2 [4] \
         [--shape small|config5s] [--threads N]
 
@@ -11,7 +11,9 @@ outputs; then ``--nproc`` processes of ``8 / nproc`` local devices each
 form a torch.distributed group (gloo on the CPU, NCCL on CUDA, where
 rank r takes card r) and run the sharded projection, scoring and DP over
 the global mesh with real cross-process collectives.  Every process
-writes complete outputs, each compared with the golden.
+writes complete outputs, each compared with the golden.  The device is
+``cuda`` unless ``--device cpu`` is given; with fewer visible cards than
+``--nproc`` the mesh mode on ``cuda`` raises before it starts a child.
 
 ``--mode chains``: ``--process-sharding chains`` at each process count
 of ``--sweep``; the chains go round-robin over the ranks (gloo, barriers
@@ -323,7 +325,7 @@ def run_mesh(args) -> int:
     return 0 if not mismatches else 1
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--pid", type=int, default=0, help=argparse.SUPPRESS)
@@ -341,13 +343,20 @@ def main(argv=None) -> int:
                     help="chains mode: process counts (default 1 2)")
     ap.add_argument("--shape", choices=["small", "config5s"],
                     default="small")
-    ap.add_argument("--device", choices=["cpu", "cuda"], default="cpu")
+    ap.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
+                    help="cuda (default: the mesh layout takes one card a "
+                         "process) or cpu")
     ap.add_argument("--threads", type=int, default=1,
                     help="host worker threads of each process")
     ap.add_argument("--timeout", type=float, default=1800.0,
                     help="seconds a group of processes may take")
     ap.add_argument("--workdir",
                     default=os.path.join(REPO, "build", "dist_sim"))
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.child:
         return run_child(args)
@@ -356,6 +365,16 @@ def main(argv=None) -> int:
         return run_chains_sweep(args)
     if MESH_DEVICES % args.nproc:
         ap.error(f"--nproc must divide {MESH_DEVICES}")
+    if args.device == "cuda":
+        import torch
+
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < args.nproc:
+            # NCCL takes one card a rank; never drop to the CPU
+            raise RuntimeError(
+                f"mesh mode on cuda needs a card for each of --nproc "
+                f"{args.nproc} processes, and {cards} are visible; pass "
+                "--device cpu to run the layout on the CPU")
     return run_mesh(args)
 
 

@@ -1,17 +1,28 @@
-"""Per-chain phasing driver of the port: projection -> matrix -> scoring ->
-cluster editing -> threading DP -> emission, batched across chains.
+"""Phasing drivers of the port: projection -> matrix -> scoring -> cluster
+editing -> threading DP -> emission, chain by chain or batched across
+chains.
 
-Counterpart of ``phase_all_chains_batched`` (``ahsoka_tpu/phase.py``).
-Pass 1 runs the batched projection pre-pass and builds every chain's
-allele matrix; pass 2 scores the dense chains in batched device calls
-and runs cluster editing; pass 3 threads all chains in batched DP calls
-and emits in the reference's size-sorted order.  Same outputs as the JAX
-driver.
+Counterpart of ``ahsoka_tpu/phase.py``.  Chains are processed largest
+first; the aggregate ``-result.txt`` gets a ``chain id`` / ``size of
+chain`` header for every chain, skipped ones included.
 
-Device failures propagate: unlike the JAX package, no stage falls back
-from the device to another path.  ``keep_going`` keeps its documented
-behaviour (per-chain failures are recorded and the run continues; a
-failed batched DP is retried chain by chain, and logged).
+- ``phase_all_chains_batched`` (the default, ``batch_dp=True``): pass 1
+  runs the batched projection pre-pass and builds every chain's allele
+  matrix; pass 2 scores the dense chains in batched device calls and runs
+  cluster editing; pass 3 threads all chains in batched DP calls and
+  emits in the reference's size-sorted order.
+- ``phase_all_chains`` (``batch_dp=False``, and ``backend="host"``):
+  ``phase_one_chain`` runs each chain through every stage before the
+  next starts.  On the device backend each chain's DP is one forward and
+  one backtrace launch (``thread_chain_device``); the host backend is the
+  exact numpy oracle (host readsets, ``score_pairs``, cluster editing,
+  ``build_dp_inputs``, ``dp_host``) and touches no device.
+
+The drivers write the same outputs as the JAX package's.  Device
+failures propagate: unlike the JAX package, no stage falls back from the
+device to another path.  ``keep_going`` keeps its documented behaviour
+(per-chain failures are recorded and the run continues; a failed
+batched DP is retried chain by chain, and logged).
 
 Sharded layouts: ``devices`` (this process's torch devices) carries the
 mesh to the stages, whose device-count gates decide whether
@@ -38,16 +49,43 @@ import os
 import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from ahsoka_tpu_torch.cluster.editing import cluster_editing
-from ahsoka_tpu_torch.cluster.postprocess import consensus_lookup
+from ahsoka_tpu_torch.cluster.postprocess import (build_dp_inputs,
+                                                  consensus_lookup)
 from ahsoka_tpu_torch.config import PhasingConfig
 from ahsoka_tpu_torch.dist.mesh import barrier, world
 from ahsoka_tpu_torch.emit.result import emit_chain_result
-from ahsoka_tpu_torch.project.readset import ChainReadsets
+from ahsoka_tpu_torch.project.readset import (ChainReadsets,
+                                              build_chain_readsets)
+from ahsoka_tpu_torch.score.pairwise import readset_to_matrix, score_pairs
+from ahsoka_tpu_torch.thread.dp_host import assign_rows, thread_chain
 from ahsoka_tpu_torch.utils import substage
 from ahsoka_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+
+def device_warmup(stage_seconds: Dict[str, float], device) -> None:
+    """Create the device's context and make one trivial round trip before
+    the phase timer starts (``ahsoka_tpu/phase.py:36-64``), so the first
+    device stage is not charged for them.  Records the elapsed time under
+    ``device_warmup`` (also when it fails) and the least of three tiny
+    fetches under ``device_rtt_est``.  A failure raises: the port has no
+    fallback."""
+    t_w = time.perf_counter()
+    try:
+        x = torch.zeros(8, device=device)
+        x.sum().item()
+        probes = []
+        for _ in range(3):
+            t = time.perf_counter()
+            x.sum().item()
+            probes.append(time.perf_counter() - t)
+        stage_seconds["device_rtt_est"] = min(probes)
+    finally:
+        stage_seconds["device_warmup"] = time.perf_counter() - t_w
 
 
 @dataclasses.dataclass
@@ -66,6 +104,67 @@ class ChainPhasingResult:
     resumed: bool = False
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=dict)
+    # per-chain driver: (DPInputs, chain config, DP path before the rows
+    # are assigned), gathered into the run's ``art.threading``
+    threading: Optional[tuple] = None
+
+
+def phase_one_chain(chain_id: int,
+                    bubble_paths: Dict[int, List[List[int]]],
+                    alignments, graph, outstem: str, full_output,
+                    config: PhasingConfig, backend: str = "host",
+                    columns=None, bucket=None, device="cuda",
+                    devices=None) -> ChainPhasingResult:
+    """One chain through every stage (``ahsoka_tpu/phase.py:85-143``):
+    ``backend="jax"`` runs the device stages on ``device`` and threads the
+    chain as a batch of one; ``backend="host"`` runs the numpy oracle and
+    writes the readset debug files whatever the config says."""
+    from ahsoka_tpu_torch.thread.dp_torch import thread_chain_device
+
+    config = chain_config(config, chain_id)
+    result = ChainPhasingResult(chain_id=chain_id,
+                                num_bubbles=len(bubble_paths), skipped=True)
+    if len(bubble_paths) <= 1:
+        result.reason = "chain has <= 1 bubble"
+        return result
+    if columns is not None and backend != "jax":
+        raise ValueError("columnar inputs require the device backend")
+
+    if backend == "jax":
+        dp = _prepare_chain_dp(chain_id, bubble_paths, alignments, outstem,
+                               config, result, columns=columns,
+                               bucket=bucket, device=device, devices=devices)
+        if dp is None:
+            return result
+        t = time.perf_counter()
+        raw = thread_chain_device(dp, config, device=device, devices=devices)
+        result.stage_seconds["threading"] = time.perf_counter() - t
+    else:
+        readsets = build_chain_readsets(bubble_paths, alignments, config)
+        testset = readsets.partial_filtered
+        if len(testset) == 0:
+            log.warning("No reads in ReadSet for chain %d!", chain_id)
+            result.reason = "empty filtered readset"
+            return result
+        _write_readset_debug_files(outstem, chain_id, readsets)
+        scores = score_pairs(readset_to_matrix(testset), config)
+        clusters = cluster_editing(scores, mode=config.ce_mode)
+        dp = build_dp_inputs(testset, clusters, config)
+        raw = thread_chain(dp, config)
+        result.num_reads = len(testset)
+        result.num_clusters = len(clusters)
+        result.num_positions = dp.num_positions
+
+    result.haplotype_alleles = emit_chain_result(
+        graph=graph, chain_id=chain_id,
+        hap_cluster_path=assign_rows(raw, config.ploidy),
+        consensus_by_cluster=consensus_lookup(dp),
+        dense_positions=[int(p) for p in dp.positions],
+        bubble_paths=bubble_paths, ploidy=config.ploidy,
+        outstem=outstem, full_output=full_output)
+    result.skipped = False
+    result.threading = (dp, config, raw)
+    return result
 
 
 def chain_config(config: PhasingConfig, chain_id: int) -> PhasingConfig:
@@ -274,6 +373,97 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     result.num_clusters = len(clusters)
     result.num_positions = dp.num_positions
     return dp
+
+
+def _prepare_chain_dp(chain_id, bubble_paths, alignments, outstem, config,
+                      result, columns=None, bucket=None, device="cuda",
+                      devices=None):
+    """The device backend's chain pipeline up to the DP inputs
+    (projection, matrix assembly, scoring, clustering).  Returns DPInputs,
+    or None with result.reason set."""
+    matrix = _chain_matrix_stage(chain_id, bubble_paths, alignments,
+                                 outstem, config, result, columns=columns,
+                                 bucket=bucket, device=device,
+                                 devices=devices)
+    if matrix is None:
+        return None
+    return _chain_cluster_dp_stage(matrix, config, result, device=device,
+                                   devices=devices)
+
+
+def phase_all_chains(art, outstem: str, config: PhasingConfig,
+                     backend: str = "host", resume: bool = False,
+                     keep_going: bool = False, device="cuda", devices=None
+                     ) -> List[ChainPhasingResult]:
+    """Phase every chain, largest first, one at a time
+    (``ahsoka_tpu/phase.py:357-417``).
+
+    ``resume=True`` skips chains whose per-chain result file already
+    exists; ``keep_going=True`` records a chain's failure and goes on.
+    On the device backend ``dp_device_window`` is the sum of the chains'
+    threading seconds.  ``art.threading`` gets the run's DP inputs,
+    configs and paths, as from the batched driver."""
+    from ahsoka_tpu_torch.thread.states import max_states
+
+    _load_native_helpers(config)
+    columns = getattr(art, "gaf_columns", None)
+    results: List[ChainPhasingResult] = []
+    threading = {"dps": [], "configs": [], "paths": []}
+    with open(f"{outstem}-result.txt", "w") as full_output:
+        for size, chain_id in art.size_sorting:
+            full_output.write(f"chain id: {chain_id}\n")
+            full_output.write(f"size of chain: {size}\n")
+            chain_file = f"{outstem}-chain{chain_id}-result.txt"
+            if resume and os.path.exists(chain_file):
+                res = ChainPhasingResult(chain_id=chain_id,
+                                         num_bubbles=size, skipped=False,
+                                         resumed=True)
+                with open(chain_file) as fh:
+                    for i, line in enumerate(fh):
+                        full_output.write(f"haplotype {i}:\n")
+                        full_output.write(line)
+                results.append(res)
+                continue
+            t0 = time.perf_counter()
+            bucket = (art.chain_buckets.get(chain_id)
+                      if getattr(art, "chain_buckets", None) is not None
+                      else None)
+            try:
+                res = phase_one_chain(
+                    chain_id=chain_id,
+                    bubble_paths=art.allele_paths[chain_id],
+                    alignments=(art.alignments.chain_alignments(chain_id)
+                                if columns is None else None),
+                    graph=art.graph, outstem=outstem,
+                    full_output=full_output, config=config,
+                    backend=backend, columns=columns, bucket=bucket,
+                    device=device, devices=devices)
+            except Exception as exc:
+                if not keep_going:
+                    raise
+                log.error("chain %d failed: %s", chain_id, exc)
+                res = ChainPhasingResult(chain_id=chain_id,
+                                         num_bubbles=size, skipped=True,
+                                         reason="error", error=str(exc))
+            res.seconds = time.perf_counter() - t0
+            if not res.skipped:
+                ccfg = chain_config(config, chain_id)
+                S = max_states(ccfg.ploidy)
+                res.dp_cells = max(res.num_positions - 1, 0) \
+                    * _dp_frontier_width(ccfg, S) * S
+            if res.threading is not None:
+                for key, value in zip(("dps", "configs", "paths"),
+                                      res.threading):
+                    threading[key].append(value)
+            results.append(res)
+    if backend == "jax":
+        art.stage_seconds["dp_device_window"] = sum(
+            r.stage_seconds.get("threading", 0.0) for r in results)
+    art.threading = threading
+    sub = substage.drain()
+    if sub:
+        art.stage_seconds["substages"] = sub
+    return results
 
 
 def _load_native_helpers(config: PhasingConfig) -> None:

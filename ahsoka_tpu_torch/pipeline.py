@@ -1,13 +1,15 @@
 """Pipeline orchestration of the port (counterpart of ahsoka_tpu/pipeline.py).
 
     parse GFA -> find bubbles -> [only-bubbles: write -bubbleinfo.txt, stop]
-              -> parse GAF -> enumerate allele paths -> batched phasing
+              -> parse GAF -> enumerate allele paths -> phasing
               -> result files + -metrics.json
 
 Parsing, bubbles, allele paths and the bubbleinfo/identities side files
 are host stages (this package's copies of the JAX package's, byte-equal
 in output).  Phasing runs ``ahsoka_tpu_torch.phase.phase_all_chains_batched``
-on a torch device (and, in the sharded layouts, a list of them).  In the
+on a torch device (and, in the sharded layouts, a list of them), or
+``phase_all_chains`` chain by chain for ``batch_dp=False`` and for the
+host backend (``backend="host"``, the numpy oracle).  In the
 chain layout over several processes (``process_chain_sharding``) rank 0
 alone writes the shared side files, and every other rank its metrics as
 ``-metrics.rank<r>.json``.
@@ -234,34 +236,39 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
     device list for ``data_shards`` / ``chain_shards`` (default: every
     card for CUDA, or this rank's own card in a process group of more
     than one rank, ``device`` alone for the CPU; it may repeat a device).
+    ``config.backend="host"`` or ``config.batch_dp=False`` phase chain by
+    chain (``phase.phase_all_chains``); the host backend reads the GAF
+    into alignment objects (``columnar`` defaults to False for it).
     ``profile_dir`` writes a torch.profiler trace of the phasing stage
     (Chrome trace JSON)."""
     from ahsoka_tpu_torch.utils.malloc_tune import retain_freed_heap
-    from ahsoka_tpu_torch.phase import (check_layout,
+    from ahsoka_tpu_torch.phase import (check_layout, device_warmup,
+                                        phase_all_chains,
                                         phase_all_chains_batched)
 
+    # the device resolves first on either backend: a bare run without a
+    # card raises, although the host backend then touches no device
     dev = resolve_device(own_card(device))
     devs = [resolve_device(d) for d in local_devices(devices, dev)]
+    backend = config.backend
     # validate before the (possibly minutes-long) input parse
-    if config.process_chain_sharding and not (config.backend == "jax"
+    if backend not in ("jax", "host"):
+        raise ValueError(f"unknown backend {backend!r} (jax or host)")
+    if config.process_chain_sharding and not (backend == "jax"
                                               and config.batch_dp):
         raise ValueError("process_chain_sharding requires the batched "
                          "device pipeline (backend='jax', batch_dp=True)")
-    if config.backend != "jax":
-        raise NotImplementedError(
-            f"backend={config.backend!r}: the port runs the device "
-            "pipeline only; the host oracle is the JAX package's "
-            "backend='host'")
-    if not config.batch_dp:
-        raise NotImplementedError(
-            "batch_dp=False (the per-chain sequential driver) is not "
-            "ported; the batched driver gives the same outputs")
     check_layout(config)
     retain_freed_heap()
     if columnar is None:
-        columnar = not config.debug_readset_files
+        # the host readsets are built from alignment objects
+        columnar = backend == "jax" and not config.debug_readset_files
     art = prepare_phase_inputs(gfa_path, gaf_path, outstem, config,
                                columnar=columnar)
+    if backend == "jax":
+        # the context and first round trip, outside the phase timer, on
+        # either device-backend driver
+        device_warmup(art.stage_seconds, dev)
     t0 = time.perf_counter()
     prof = None
     if profile_dir:
@@ -271,10 +278,16 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
     try:
-        results = phase_all_chains_batched(art, outstem, config,
-                                           resume=resume,
-                                           keep_going=keep_going,
-                                           device=dev, devices=devs)
+        if backend == "jax" and config.batch_dp:
+            results = phase_all_chains_batched(art, outstem, config,
+                                               resume=resume,
+                                               keep_going=keep_going,
+                                               device=dev, devices=devs)
+        else:
+            results = phase_all_chains(art, outstem, config,
+                                       backend=backend, resume=resume,
+                                       keep_going=keep_going, device=dev,
+                                       devices=devs)
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -290,7 +303,11 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
 def _write_metrics(outstem: str, art: PipelineArtifacts, results,
                    config: PhasingConfig, dev: torch.device) -> None:
     """``-metrics.json`` in the JAX package's schema (metrics_version 3),
-    plus the torch device it ran on."""
+    plus the device it ran on: the card's name, or ``cpu`` for the CPU and
+    for the host backend.  ``stage_seconds`` holds ``device_warmup`` and
+    ``device_rtt_est`` on the device backend, taken before the phase
+    timer, so the rates exclude them."""
+    host = config.backend == "host"
     phase_s = art.stage_seconds.get("phase", 0.0) or 1e-9
     e2e_s = phase_s + art.stage_seconds.get("parse_gaf", 0.0)
     total_reads = sum(r.num_reads for r in results)
@@ -302,9 +319,9 @@ def _write_metrics(outstem: str, art: PipelineArtifacts, results,
         "rate_excludes_device_warmup": True,
         "stage_seconds": art.stage_seconds,
         "ploidy": config.ploidy,
-        "backend": "torch",
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "backend": "host" if host else "torch",
+        "device": (torch.cuda.get_device_name(dev)
+                   if dev.type == "cuda" and not host else "cpu"),
         "num_chains": len(results),
         "chains_phased": sum(1 for r in results if not r.skipped),
         "chains_skipped": sum(1 for r in results if r.skipped),

@@ -28,6 +28,7 @@ from ahsoka_tpu_torch.cluster.postprocess import DPInputs
 from ahsoka_tpu_torch.config import PhasingConfig
 from ahsoka_tpu_torch.dist.mesh import CHAIN_AXIS, gated_mesh, local_devices
 from ahsoka_tpu_torch.dist.step import sharded_thread_states
+from ahsoka_tpu_torch.thread.dp_host import assign_rows
 from ahsoka_tpu_torch.thread.states import (full_state_counts,
                                       full_state_validity, state_tuples)
 from ahsoka_tpu_torch.utils import substage
@@ -202,9 +203,20 @@ def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
 def thread_chain_device(dp: DPInputs, config: PhasingConfig,
                         bucket: int = 128, device="cuda", devices=None
                         ) -> List[Tuple[int, ...]]:
-    """One chain (the keep-going per-chain retry): the batched DP at a
-    batch of one, same padding as ``dp_jax.thread_chain_device``."""
+    """One chain (the per-chain driver, and the keep-going per-chain
+    retry): the batched DP at a batch of one, same padding as
+    ``dp_jax.thread_chain_device``, so one forward and one backtrace
+    launch on the card."""
     if dp.num_positions == 0:
         return []
     return thread_chains_batched([dp], config, bucket, device=device,
                                  devices=devices)[0]
+
+
+def thread_and_assign_device(dp: DPInputs, config: PhasingConfig,
+                             device="cuda", devices=None
+                             ) -> List[Tuple[int, ...]]:
+    """``thread_chain_device`` with the haplotype rows assigned
+    (``dp_jax.thread_and_assign_device``)."""
+    return assign_rows(thread_chain_device(dp, config, device=device,
+                                           devices=devices), config.ploidy)

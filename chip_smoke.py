@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # all phases, one CUDA card
     python3 chip_smoke.py --phases env,kernels     # build + kernel checks only
     python3 chip_smoke.py --phases env,config5s    # one end-to-end run
+    python3 chip_smoke.py --phases env,config2     # config2, both drivers
 
 Runs from the repository root with no install, no jax and nothing of the
 JAX package (``ahsoka_tpu``):
@@ -48,6 +49,26 @@ JAX package (``ahsoka_tpu``):
    3, 4 and 5, a ploidy map from the planted truth) that launches all
    three kernels,
    paths identical to a plain CPU re-threading;
+5a. ``perchain``: config4s, config3c and mixed again through the per-chain
+   driver (``batch_dp=False``) on the same inputs: result, bubbleinfo and
+   every chain file byte-equal to the batched run's, one forward and one
+   backtrace launch a phased chain (counted), paths identical to the
+   batched run's and to a plain CPU re-threading; each run's phase wall,
+   DP window, ``device_warmup`` and ``device_rtt_est`` beside the batched
+   run's, and the largest |d| between one-chain and batched dense scores
+   on the card;
+5b. ``host``: the host backend (the numpy oracle) on both goldens,
+   byte-equal to ``tests/data``; mixed with ``max_coverage=None`` and no
+   collapsing through the host backend against the card's batched run,
+   chain by chain: byte-equal, or equal allele matrices, scores within
+   rtol = atol = 1e-4 and a different clustering (a near-tie the float32
+   and float64 scores break apart); the card's DP kernels on the host's
+   DP inputs: the native DP's paths (sorted tuples) and the host's
+   optimal cost within rtol 1e-5; the native sequential DP
+   (``thread/_native_dp.py``) against the card's paths on config4s's and
+   config3c's DP inputs; the log-depth DP (``thread/dp_assoc.py``) on the
+   card against the CPU, its final minimum cost within rtol 1e-5 of
+   ``dpk_forward_warp``'s on one diploid chain of P = 10,000;
 6. the beam-pruned DP (ploidy 6, ``thread/dp_beam.py``, torch code) on the
    card against the same function on the CPU at config5s's longest
    hexaploid shape (k=6, B=2048, C=2, P=112) and on an all-ties batch:
@@ -84,27 +105,35 @@ JAX package (``ahsoka_tpu``):
      over localhost (``dist/sim.py``): merged result, bubbleinfo and every
      chain file byte-equal to phase 8's, no failed chain; per rank the
      chains owned and failed, kernel launches, phase and cluster-editing
-     seconds and peak device memory.
+     seconds and peak device memory;
+10. ``config2``, only when named (``--phases env,config2``): config2 (one
+   chain of 10,000 bubbles, 50k GAF records) through both drivers on the
+   card, byte-equal, with banded scoring, the sparse solver and one C=1,
+   P~10,000 diploid DP; phase wall, stage split, peak device memory and
+   planted-truth switch error (below 0.01; the JAX package recorded
+   0.0023 on a TPU).
 
 Each end-to-end run sets the kernels' launch counts, and the counts of
 beam groups and banded chains run on the card, to 0 just before it and
 reads them just after, then re-threads its DP inputs once more on the
 card under torch.profiler for the DP kernels' device time.  After the
-golden runs, after config5s and at the end no jax and no ahsoka_tpu
-module may be loaded.  Any failure raises and exits non-zero.  The last
-line is the result:
+golden runs, after config5s, after the per-chain and host runs and at
+the end no jax and no ahsoka_tpu module may be loaded.  Any failure
+raises and exits non-zero.  The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 before it stand the card's ``nvidia-smi`` name/power-limit line, a
 ``{"kernels": [...]}`` line with one entry per TPU kernel (row of
 PERF.md's kernel table) naming the CUDA kernel that serves it, with that
 kernel's launches in the row's end-to-end run (config4s for the diploid
-rows, config3c for the general ones), its error against the plain
+rows, config3c for the general ones) and in its per-chain rerun
+(``launches_perchain``), its error against the plain
 version, both times (at config4's and config3c's DP shapes), its
 roofline bound (``bound``; for a backtrace also the bytes its tiles move)
 and ``library_ms`` null, and the ``{"beam": ...}``, ``{"banded": ...}``,
 ``{"config5s": ...}`` and ``{"dpk_forward_clusters": ...}`` lines with
-the times and counts of phases 2 and 6-8, and the ``{"sharded": ...}``
-line of phase 9.
+the times and counts of phases 2 and 6-8, the ``{"sharded": ...}`` line
+of phase 9 and the ``{"perchain": ...}`` and ``{"host": ...}`` lines of
+phases 5a-5b.
 """
 
 from __future__ import annotations
@@ -603,14 +632,18 @@ def _beam_groups(th) -> int:
 
 def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
               ploidy_map: bool = False, beam: bool = False,
-              banded: bool = False) -> dict:
+              banded: bool = False, inputs=None) -> dict:
     """``spec`` end to end on the card: every chain phased, ``kernels``
     launched by the run, paths identical to a plain CPU re-threading of
     the run's DP inputs, planted-truth switch error below
     ``max_switch_err``.  ``ploidy_map``: per-chain ploidies from the
     planted truth.  ``beam``: every beam DP group ran on the card (and
-    there is one); ``banded``: at least one chain was scored banded."""
+    there is one); ``banded``: at least one chain was scored banded.
+    ``inputs``: the (gfa, gaf, truth) of an earlier run of ``spec`` to
+    phase again instead of generating them."""
     import dataclasses
+
+    import torch
 
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.pipeline import run_phase
@@ -622,14 +655,17 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     work = os.path.join(WORK, name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    gfa, gaf, truth = (os.path.join(work, f"{name}.{x}")
-                       for x in ("gfa", "gaf", "truth"))
-    t0 = time.perf_counter()
-    write_synthetic(gfa, gaf, spec, truth_path=truth)
     plan = spec.plan()
-    log(f"{name}: {len(plan)} chains (bubbles, ploidy) "
-        f"{sorted(set(plan))}, {spec.total_reads} GAF records generated "
-        f"in {time.perf_counter() - t0:.1f} s")
+    if inputs is None:
+        gfa, gaf, truth = (os.path.join(work, f"{name}.{x}")
+                           for x in ("gfa", "gaf", "truth"))
+        t0 = time.perf_counter()
+        write_synthetic(gfa, gaf, spec, truth_path=truth)
+        log(f"{name}: {len(plan)} chains (bubbles, ploidy) "
+            f"{sorted(set(plan))}, {spec.total_reads} GAF records "
+            f"generated in {time.perf_counter() - t0:.1f} s")
+    else:
+        gfa, gaf, truth = inputs
     pmap = None
     if ploidy_map:
         pmap = _ploidy_map_from_truth(gfa, truth, cfg)
@@ -638,14 +674,17 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     outstem = os.path.join(work, "run")
 
     substage.drain()          # marks of an earlier run's CPU re-threading
+    torch.cuda.reset_peak_memory_stats(dev)
     _reset_path_counts()
     t0 = time.perf_counter()
     art = run_phase(gfa, gaf, outstem, cfg, device=dev, keep_going=False)
     synchronize(dev)
     wall = time.perf_counter() - t0
     launches = _path_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
     log(f"{name} run_phase on the card: {wall:.2f} s; kernel launches, "
-        f"beam groups and banded chains {json.dumps(launches)}")
+        f"beam groups and banded chains {json.dumps(launches)}; peak "
+        f"device memory {peak} bytes")
 
     with open(f"{outstem}-metrics.json") as fh:
         m = json.load(fh)
@@ -699,9 +738,13 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
         raise AssertionError(f"{name}: no chain took banded scoring")
     return {"launches": launches, "wall": wall, "beam_groups": groups,
             "config": cfg, "ploidy_map": pmap, "work": work,
-            "chains": len(plan),
-            "dp_kernel_device_ms": kernel_ms,
+            "inputs": (gfa, gaf, truth), "stem": outstem, "threading": th,
+            "chains": len(plan), "spec": spec, "kernels": kernels,
+            "max_switch_err": max_switch_err, "banded": banded,
+            "dp_kernel_device_ms": kernel_ms, "peak_device_bytes": peak,
             "stage_seconds": stages, "accuracy": acc,
+            "chain_stage_seconds": [c["stage_seconds"]
+                                    for c in m["chains"]],
             "clustering_solver_cpu_s": m["stage_seconds"].get(
                 "substages", {}).get("clustering.solver")}
 
@@ -769,6 +812,393 @@ def e2e_runs(dev, which) -> dict:
                           dp_beam_width=BEAM_WIDTH, **bench),
             DP_KERNELS, 0.02, ploidy_map=True, beam=True,
             banded=True)
+    return out
+
+
+# ------------------------------------------------- per-chain driver, host
+def perchain_run(dev, name: str, r: dict) -> dict:
+    """The end-to-end run ``r`` of phase_e2e again with ``batch_dp=False``
+    on the same inputs: result, bubbleinfo and every chain file byte-equal
+    to the batched run's, one forward and one backtrace launch a phased
+    chain, paths identical to the batched run's (and, by phase_e2e, to a
+    plain CPU re-threading).  Dense scores of one chain at a time against
+    the same chains scored in one batched call on the card: the largest
+    |d| (single-ploidy runs)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ahsoka_tpu_torch.dist.sim import compare_outputs, output_names
+    from ahsoka_tpu_torch.score import device as score_device
+
+    cfg = dataclasses.replace(r["config"], batch_dp=False)
+    scored = []
+    real = score_device.score_pairs_device
+
+    def spy(matrix, config, *a, mult=None, **k):
+        out = real(matrix, config, *a, mult=mult, **k)
+        scored.append((matrix, mult, out))
+        return out
+
+    score_device.score_pairs_device = spy
+    try:
+        s = phase_e2e(dev, f"{name}_perchain", r["spec"], cfg, r["kernels"],
+                      r["max_switch_err"], banded=r["banded"],
+                      inputs=r["inputs"])
+    finally:
+        score_device.score_pairs_device = real
+    bad = compare_outputs(r["stem"], s["stem"])
+    if bad:
+        raise AssertionError(f"{name}: the per-chain run differs from the "
+                             f"batched run: {bad[:5]}")
+    th, launches = s["threading"], s["launches"]
+    chains = sum(1 for dp in th["dps"] if dp.num_positions)
+    forward = launches["dpk_forward_warp"] + launches["dpk_forward"]
+    if not forward == launches["dpk_backtrace"] == chains == s["chains"]:
+        raise AssertionError(f"{name} per-chain: launches {launches} for "
+                             f"{chains} threaded of {s['chains']} chains")
+    if th["paths"] != r["threading"]["paths"]:
+        raise AssertionError(f"{name}: per-chain paths differ from the "
+                             "batched run's")
+    diff = None
+    if scored and not cfg.ploidy_map:
+        many = score_device.score_pairs_device_many(
+            [mx for mx, _mu, _o in scored], cfg,
+            mults=[mu for _mx, mu, _o in scored], device=dev)
+        diff = max(float(np.abs(o - b).max(initial=0.0))
+                   for (_mx, _mu, o), b in zip(scored, many))
+    stages, base = s["stage_seconds"], r["stage_seconds"]
+    out = {"files_byte_equal": len(output_names(r["stem"])),
+           "chains": chains, "launches": launches,
+           "phase_s": stages["phase"], "batched_phase_s": base["phase"],
+           "dp_device_window_s": stages.get("dp_device_window"),
+           "batched_dp_device_window_s": base.get("dp_device_window"),
+           "device_warmup_s": stages.get("device_warmup"),
+           "device_rtt_est_s": stages.get("device_rtt_est"),
+           "batched_device_warmup_s": base.get("device_warmup"),
+           "batched_device_rtt_est_s": base.get("device_rtt_est"),
+           "dp_kernel_device_ms": s["dp_kernel_device_ms"],
+           "peak_device_bytes": s["peak_device_bytes"],
+           "batched_peak_device_bytes": r["peak_device_bytes"],
+           "chains_scored_dense": len(scored),
+           "max_abs_score_diff_one_vs_batched": diff,
+           "accuracy": s["accuracy"]}
+    log(f"{name} per-chain (batch_dp=False) vs batched on the card: "
+        + json.dumps(out))
+    return out
+
+
+def phase_perchain(dev, e2e) -> dict:
+    """config4s, config3c and mixed through the per-chain driver."""
+    return {name: perchain_run(dev, name, e2e[name])
+            for name in ("config4s", "config3c", "mixed")}
+
+
+def _host_goldens(dev) -> None:
+    """The port's host backend (the CLI's ``--backend host``) on both
+    goldens: byte-equal to tests/data, readset debug files written."""
+    from ahsoka_tpu_torch.cli.main import main as cli_main
+
+    work = os.path.join(WORK, "host_golden")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    for golden, argv, pairs in (
+            ("golden_diploid", [],
+             [("d-result.txt", "golden_diploid-result.txt"),
+              ("d-bubbleinfo.txt", "golden_diploid-bubbleinfo.txt"),
+              ("golden_diploid-alignment_identities.txt",
+               "golden_diploid-identities.txt")]),
+            ("golden_tetra", ["--ploidy", "4", "--no-genotypes"],
+             [("t-result.txt", "golden_tetra-result.txt"),
+              ("golden_tetra-alignment_identities.txt",
+               "golden_tetra-alignment_identities.txt")])):
+        gaf = os.path.join(work, f"{golden}.gaf")
+        shutil.copy(os.path.join(DATA, f"{golden}.gaf"), gaf)
+        stem = os.path.join(work, pairs[0][0].split("-")[0])
+        rc = cli_main(["phase", "-g", os.path.join(DATA, f"{golden}.gfa"),
+                       "-a", gaf, "-o", stem, "--device", str(dev),
+                       "--backend", "host"] + argv)
+        if rc != 0 or not any(f.endswith("-readset.txt")
+                              for f in os.listdir(work)):
+            raise AssertionError(f"host backend on {golden}: rc {rc} or "
+                                 "no readset debug file")
+        for got, want in pairs:
+            with open(os.path.join(work, got), "rb") as a, \
+                    open(os.path.join(DATA, want), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"host backend: {got} differs "
+                                         f"from {want}")
+    log("host backend on both goldens: result, bubbleinfo and identities "
+        "byte-equal to tests/data, readset debug files written")
+
+
+def _host_vs_card_chain(dev, art, cfg, chain_id) -> dict:
+    """Why one chain's host and card results differ: the host readset's
+    allele matrix against the card's, the host's float64 pair scores
+    against the card's float32 ones, and the two clusterings."""
+    import numpy as np
+
+    from ahsoka_tpu_torch.cluster.editing import cluster_editing
+    from ahsoka_tpu_torch.phase import (ChainPhasingResult,
+                                        _chain_matrix_stage, chain_config)
+    from ahsoka_tpu_torch.project.readset import build_chain_readsets
+    from ahsoka_tpu_torch.score.device import score_pairs_device
+    from ahsoka_tpu_torch.score.pairwise import (readset_to_matrix,
+                                                 score_pairs)
+
+    ccfg = chain_config(cfg, chain_id)
+    bubble_paths = art.allele_paths[chain_id]
+    alignments = art.alignments.chain_alignments(chain_id)
+    host_m = readset_to_matrix(build_chain_readsets(
+        bubble_paths, alignments, ccfg).partial_filtered)
+    res = ChainPhasingResult(chain_id=chain_id, num_bubbles=0, skipped=True)
+    card_m = _chain_matrix_stage(chain_id, bubble_paths, alignments,
+                                 os.path.join(WORK, "host_mixed", "diag"),
+                                 ccfg, res, device=dev)
+    same_matrix = (np.array_equal(host_m.alleles, card_m.alleles)
+                   and host_m.read_names == card_m.read_names)
+    host_s = score_pairs(host_m, ccfg)
+    card_s = score_pairs_device(card_m, ccfg, device=dev)
+    host_c = cluster_editing(host_s, mode=ccfg.ce_mode)
+    card_c = cluster_editing(card_s, mode=ccfg.ce_mode)
+    return {"chain": chain_id, "ploidy": ccfg.ploidy,
+            "reads": host_m.num_reads, "matrix_equal": same_matrix,
+            "max_abs_score_diff": float(np.abs(host_s - card_s).max()),
+            "scores_within_1e-4": bool(np.allclose(card_s, host_s,
+                                                   rtol=1e-4, atol=1e-4)),
+            "clusters": [len(host_c), len(card_c)],
+            "same_clusters": host_c == card_c}
+
+
+def _sorted_path(path) -> list:
+    return [tuple(sorted(t)) for t in path]
+
+
+def _native_path(dp, c) -> list:
+    """One chain's DP inputs through the native sequential DP (float32,
+    one core) -> its multiset path."""
+    import numpy as np
+
+    from ahsoka_tpu_torch.thread._native_dp import run_native_dp
+    from ahsoka_tpu_torch.thread.states import state_tuples
+
+    k = c.ploidy
+    _cells, states = run_native_dp(
+        dp.candidates, dp.num_candidates, dp.coverage, dp.consensus,
+        dp.genotypes.astype(np.float32), k, c.switch_cost,
+        c.affine_switch_cost, c.coverage_cost_weight,
+        c.genotype_cost_weight if c.use_genotypes else 0.0)
+    tuples = state_tuples(2 * k, k)
+    return [tuple(int(dp.candidates[j, s]) for s in tuples[int(st)])
+            for j, st in enumerate(states)]
+
+
+def _path_cost(dp, path, c) -> float:
+    """A multiset path's cost in the host oracle's float64 cost model
+    (``thread/dp_host.py``)."""
+    from collections import Counter
+
+    from ahsoka_tpu_torch.thread.dp_host import node_costs
+    from ahsoka_tpu_torch.thread.states import (full_state_validity,
+                                                state_tuples)
+
+    k = c.ploidy
+    valid, tuples = full_state_validity(k), state_tuples(2 * k, k)
+    total = 0.0
+    for j, tup in enumerate(path):
+        m, target = int(dp.num_candidates[j]), sorted(tup)
+        s = next(s for s, slots in enumerate(tuples) if valid[m, s]
+                 and sorted(int(dp.candidates[j, x]) for x in slots)
+                 == target)
+        total += float(node_costs(dp, j, c)[s])
+        if j:
+            sw = k - sum((Counter(path[j - 1]) & Counter(tup)).values())
+            total += c.switch_cost * sw + c.affine_switch_cost * (sw > 0)
+    return total
+
+
+def _host_mixed(dev, mixed) -> dict:
+    """mixed with max_coverage=None and collapsing off (where the JAX
+    package compares its backends): the host backend (numpy, on the CPU)
+    against the card's batched run with the same config, chain by chain.
+    A chain either writes the same file, or its allele matrices are equal,
+    its scores agree within the JAX package's device tolerance (rtol =
+    atol = 1e-4) and the two clusterings differ (a near-tie that float32
+    scores on the card and float64 ones on the host break apart).  The
+    card's DP kernels thread the host's own DP inputs to the host's paths
+    (sorted tuples) in every chain."""
+    import dataclasses
+
+    from ahsoka_tpu_torch.dist.sim import compare_outputs, output_names
+    from ahsoka_tpu_torch.pipeline import run_phase
+    from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
+
+    work = os.path.join(WORK, "host_mixed")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gfa, gaf, _truth = mixed["inputs"]
+    cfg = dataclasses.replace(mixed["config"], max_coverage=None,
+                              ce_collapse_identical=False,
+                              debug_readset_files=False)
+    t0 = time.perf_counter()
+    run_phase(gfa, gaf, os.path.join(work, "card"), cfg, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = run_phase(gfa, gaf, os.path.join(work, "host"),
+                    dataclasses.replace(cfg, backend="host"), device=dev)
+    host_s = time.perf_counter() - t0
+    bad = compare_outputs(os.path.join(work, "card"),
+                          os.path.join(work, "host"))
+    th = art.threading
+    card_paths = thread_chains_batched(th["dps"], cfg,
+                                       chain_configs=th["configs"],
+                                       device=dev)
+    dp_checks = []
+    for dp, c, host_path, card_path in zip(th["dps"], th["configs"],
+                                           th["paths"], card_paths):
+        native = _sorted_path(_native_path(dp, c))
+        host_cost = _path_cost(dp, host_path, c)
+        card_cost = _path_cost(dp, card_path, c)
+        if _sorted_path(card_path) != native \
+                or abs(card_cost - host_cost) > 1e-5 * abs(host_cost):
+            raise AssertionError(f"host mixed: the card's DP kernels thread "
+                                 f"the host's ploidy-{c.ploidy} DP inputs "
+                                 f"to another path than the native DP, or "
+                                 f"cost {card_cost} vs the host's "
+                                 f"{host_cost}")
+        dp_checks.append({
+            "ploidy": c.ploidy, "positions": dp.num_positions,
+            "positions_off_host_path": sum(
+                a != b for a, b in zip(_sorted_path(card_path),
+                                       _sorted_path(host_path))),
+            "cost_card": card_cost, "cost_host": host_cost})
+    differing = []
+    for suffix, _why in bad:
+        if suffix == "-result.txt":
+            continue
+        chain_id = int(suffix[len("-chain"):-len("-result.txt")])
+        why = _host_vs_card_chain(dev, art, cfg, chain_id)
+        differing.append(why)
+        if not (why["matrix_equal"] and why["scores_within_1e-4"]
+                and not why["same_clusters"]):
+            raise AssertionError(f"host mixed: chain {chain_id} differs "
+                                 f"unexplained: {why}")
+    if any(s != "-result.txt" and not s.startswith("-chain")
+           for s, _w in bad) or (bad and not differing):
+        raise AssertionError(f"host mixed: {bad}")
+    out = {"files": len(output_names(os.path.join(work, "card"))),
+           "chains": len(th["dps"]), "chains_differing": differing,
+           "card_run_s": card_s, "host_run_s": host_s,
+           "card_dp_on_host_inputs": dp_checks}
+    log("host backend vs the card on mixed (max_coverage=None, no "
+        "collapsing): " + json.dumps(out))
+    return out
+
+
+def _native_vs_card(e2e) -> dict:
+    """The native sequential DP (one core) on config4s's and config3c's DP
+    inputs: the card's paths, as sorted tuples, in every chain."""
+    out = {}
+    for name in ("config4s", "config3c"):
+        th = e2e[name]["threading"]
+        t0 = time.perf_counter()
+        for dp, c, path in zip(th["dps"], th["configs"], th["paths"]):
+            if _sorted_path(_native_path(dp, c)) != _sorted_path(path):
+                raise AssertionError(f"native DP != the card's path in a "
+                                     f"{name} chain (P={dp.num_positions})")
+        out[name] = {"chains": len(th["dps"]),
+                     "native_s": time.perf_counter() - t0,
+                     "card_dp_device_window_s":
+                         e2e[name]["stage_seconds"].get("dp_device_window")}
+    log("native sequential DP == the card's paths (sorted tuples): "
+        + json.dumps(out))
+    return out
+
+
+def _assoc_vs_kernel(dev) -> dict:
+    """The log-depth associative-scan DP on the card against the CPU, and
+    its final minimum cost against ``dpk_forward_warp``'s on one diploid
+    chain of P = 10,000 (rtol 1e-5: the two add in different orders)."""
+    import numpy as np
+    import torch
+
+    from ahsoka_tpu_torch.ops import minplus_diploid as md
+    from ahsoka_tpu_torch.state import to_torch
+    from ahsoka_tpu_torch.thread.dp_assoc import _assoc_forward
+    from ahsoka_tpu_torch.thread.states import (full_state_counts,
+                                                full_state_validity)
+
+    P = 10000
+    arrays = random_dp_batch(1, P, seed=_seed(2, 1, P), ploidy=2)
+    kw = dict(ploidy=2, num_alleles=2, switch_cost=SWITCH,
+              affine_cost=AFFINE, cov_w=1.0, geno_w=1.0)
+    tables = (full_state_counts(2), full_state_validity(2))
+
+    def assoc(device):
+        return _assoc_forward(*to_torch(*(a[0] for a in arrays),
+                                        device=device), *tables, **kw)
+
+    fwd_card, _T = assoc(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd_cpu, _T = assoc("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    card_ms = _median_ms(lambda: assoc(dev), 3)
+    fwd_card = fwd_card.cpu()
+    if not torch.allclose(fwd_card, fwd_cpu, rtol=1e-5, atol=0):
+        raise AssertionError("dp_assoc: forward costs differ between the "
+                             "card and the CPU")
+    cand, node = _node_costs(arrays, dev, 2)
+    fin, _bp = md.minplus_forward_diploid(cand, node, switch_cost=SWITCH,
+                                          affine_cost=AFFINE)
+    kern = float(fin.min())
+    got = float(fwd_card[-1].min())
+    rel = abs(got - kern) / abs(kern)
+    if not rel <= 1e-5:
+        raise AssertionError(f"dp_assoc final cost {got} vs dpk_forward_warp "
+                             f"{kern} (rel {rel:.3g})")
+    out = {"P": P, "final_cost": got, "kernel_final_cost": kern,
+           "rel_diff": rel,
+           "max_abs_card_vs_cpu": float(np.abs(
+               fwd_card.numpy() - fwd_cpu.numpy()).max()),
+           "card_ms": card_ms, "cpu_ms": cpu_ms}
+    log("dp_assoc (Hillis-Steele min-plus scan) on the card: "
+        + json.dumps(out))
+    return out
+
+
+def phase_host(dev, e2e) -> dict:
+    """The host oracle: goldens, mixed against the card, the native DP and
+    the log-depth DP against the kernels."""
+    _host_goldens(dev)
+    return {"mixed": _host_mixed(dev, e2e["mixed"]),
+            "native_dp": _native_vs_card(e2e),
+            "dp_assoc": _assoc_vs_kernel(dev)}
+
+
+def phase_config2(dev) -> dict:
+    """config2 (one chain of 10,000 bubbles, 50k GAF records) through both
+    drivers on the card: byte-equal; banded scoring, the sparse solver
+    and one C=1, P~10,000 diploid DP; switch error below 0.01."""
+    from ahsoka_tpu_torch.config import PhasingConfig
+    from ahsoka_tpu_torch.utils.synth import CONFIGS
+
+    threads = min(os.cpu_count() or 1, 8)
+    cfg = PhasingConfig(debug_readset_files=False, max_coverage=64,
+                        threads=threads)
+    r = phase_e2e(dev, "config2", CONFIGS["config2"], cfg,
+                  ("dpk_forward_warp", "dpk_backtrace"), 0.01, banded=True)
+    s = perchain_run(dev, "config2", r)
+    chain = r["chain_stage_seconds"][0]
+    out = {"phase_s": r["stage_seconds"]["phase"], "stages": chain,
+           "banded_scoring_s": chain.get("scoring"),
+           "sparse_solver_thread_s": r["clustering_solver_cpu_s"],
+           "peak_device_bytes": r["peak_device_bytes"],
+           "switch_err_vs_truth": r["accuracy"].get("switch_err_vs_truth"),
+           "jax_package_switch_err_tpu": 0.0023,
+           "dp_kernel_device_ms": r["dp_kernel_device_ms"],
+           "perchain": s}
+    log(json.dumps({"config2": out}))
     return out
 
 
@@ -1063,25 +1493,30 @@ def phase_sharded_chains(c5) -> dict:
 
 
 PHASES = ("env", "kernels", "golden", "config4s", "config3c", "mixed",
-          "beam", "banded", "config5s", "sharded")
+          "perchain", "host", "beam", "banded", "config5s", "sharded")
+# phases that run only when named (not in "all")
+EXTRA_PHASES = ("config2",)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
-                    help=f"comma list of {','.join(PHASES)} for a partial "
-                         "run (prints no result line)")
+                    help=f"comma list of {','.join(PHASES + EXTRA_PHASES)} "
+                         "for a partial run (prints no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phases = (set(PHASES) if args.phases == "all"
               else set(args.phases.split(",")))
-    unknown = phases - set(PHASES)
+    unknown = phases - set(PHASES + EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     partial = phases != set(PHASES)
     if "sharded" in phases:
         # the sharded runs are held to these runs' outputs
         phases |= {"config3c", "config5s"}
+    if phases & {"perchain", "host"}:
+        # the per-chain and host runs phase these runs' inputs again
+        phases |= {"config4s", "config3c", "mixed"}
 
     import torch
 
@@ -1101,6 +1536,10 @@ def main(argv=None) -> int:
     e2e = e2e_runs(dev, phases)
     if "config5s" in phases:
         no_reference_modules("config5s")
+    perchain = phase_perchain(dev, e2e) if "perchain" in phases else None
+    host = phase_host(dev, e2e) if "host" in phases else None
+    if phases & {"perchain", "host"}:
+        no_reference_modules("the per-chain and host runs")
     beam = phase_beam(dev) if "beam" in phases else None
     banded = phase_banded(dev) if "banded" in phases else None
     sharded = None
@@ -1108,6 +1547,9 @@ def main(argv=None) -> int:
         sharded = {"mesh_config3c": phase_sharded_mesh(dev, e2e["config3c"]),
                    "chains_config5s": phase_sharded_chains(e2e["config5s"])}
         no_reference_modules("the sharded runs")
+    if "config2" in phases:
+        phase_config2(dev)
+        no_reference_modules("config2")
     if partial:
         log("partial run: no result line")
         return 0
@@ -1120,6 +1562,7 @@ def main(argv=None) -> int:
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "tpu_kernel": row,
                  "launches": e2e[run]["launches"][name],
+                 "launches_perchain": perchain[run]["launches"][name],
                  "max_abs_err": kern["err"][name], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None,
@@ -1137,6 +1580,8 @@ def main(argv=None) -> int:
                            "stage_seconds")}}))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"perchain": perchain}))
+    log(json.dumps({"host": host}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

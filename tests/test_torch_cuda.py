@@ -414,3 +414,32 @@ def test_cuda_row_sharded_scoring_matches_unsharded(cuda_device, mode):
     print(f"row-sharded vs unsharded on the card ({mode}): max |d| "
           f"{float(np.abs(sharded - single).max())}")
     assert np.array_equal(sharded, single)
+
+
+@pytest.mark.parametrize("golden,kw", [
+    ("golden_diploid", {}),
+    ("golden_tetra", dict(ploidy=4, use_genotypes=False))])
+@pytest.mark.parametrize("backend", ["jax", "host"])
+def test_cuda_perchain_and_host_goldens(cuda_device, tmp_path, golden, kw,
+                                        backend):
+    """The per-chain driver (``batch_dp=False``; one forward and one
+    backtrace launch for the golden's one chain) and the host backend with
+    the card as the run's device: the committed result, byte for byte."""
+    from ahsoka_tpu_torch.config import PhasingConfig as TorchConfig
+    from ahsoka_tpu_torch.pipeline import run_phase
+    from ahsoka_tpu_torch.thread import dp_kernels
+
+    gaf = tmp_path / f"{golden}.gaf"
+    shutil.copy(os.path.join(DATA, f"{golden}.gaf"), gaf)
+    dp_kernels.reset_launch_counts()
+    run_phase(os.path.join(DATA, f"{golden}.gfa"), str(gaf),
+              str(tmp_path / "o"),
+              TorchConfig(backend=backend, batch_dp=False, **kw),
+              device=cuda_device)
+    with open(tmp_path / "o-result.txt", "rb") as a, \
+            open(os.path.join(DATA, f"{golden}-result.txt"), "rb") as b:
+        assert a.read() == b.read()
+    launches = dp_kernels.launch_counts()
+    forward = launches["dpk_forward_warp"] + launches["dpk_forward"]
+    want = 1 if backend == "jax" else 0
+    assert (forward, launches["dpk_backtrace"]) == (want, want)

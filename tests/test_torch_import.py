@@ -20,7 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
                                                "ahsoka_tpu_torch.")
          if not m.name.endswith("__main__")]
 assert {"ahsoka_tpu_torch.dist.mesh", "ahsoka_tpu_torch.dist.step",
-        "ahsoka_tpu_torch.dist.sim"} <= set(names), names
+        "ahsoka_tpu_torch.dist.sim", "ahsoka_tpu_torch.thread._native_dp",
+        "ahsoka_tpu_torch.thread.dp_assoc", "ahsoka_tpu_torch.utils.editdist",
+        "ahsoka_tpu_torch.utils.kmers"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -31,6 +33,15 @@ assert main(["phase", "-g", os.path.join(data, "golden_tetra.gfa"), "-a",
              os.path.join(work, "golden_tetra.gaf"), "-o",
              os.path.join(work, "t"), "--device", "cpu", "--ploidy", "4",
              "--no-genotypes"]) == 0
+os.makedirs(os.path.join(work, "host"))
+shutil.copy(os.path.join(data, "golden_diploid.gaf"),
+            os.path.join(work, "host"))
+assert main(["phase", "-g", os.path.join(data, "golden_diploid.gfa"), "-a",
+             os.path.join(work, "host", "golden_diploid.gaf"), "-o",
+             os.path.join(work, "host", "h"), "--device", "cpu",
+             "--backend", "host"]) == 0
+from ahsoka_tpu_torch.thread._native_dp import native_dp_available
+assert native_dp_available()
 assert main(["only-bubbles", "-g", os.path.join(data, "golden_diploid.gfa"),
              "-o", os.path.join(work, "b")]) == 0
 from ahsoka_tpu_torch.host import loaded_reference_modules
@@ -39,11 +50,12 @@ print(len(names), loaded_reference_modules(sys.modules))
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every port module (the sharded layouts' ``dist/`` included) and
-    chip_smoke imported, golden_tetra phased on
-    the CPU and only-bubbles run on golden_diploid, in a fresh process:
-    no jax, no ahsoka_tpu and no ahsoka_tpu.* module was loaded, and the
-    outputs equal the committed ones."""
+    """Every port module (the sharded layouts' ``dist/`` and the DP
+    oracles included) and chip_smoke imported, golden_tetra phased on the
+    CPU, golden_diploid phased by the host backend, the native DP built
+    and only-bubbles run on golden_diploid, in a fresh process: no jax, no
+    ahsoka_tpu and no ahsoka_tpu.* module was loaded, and the outputs
+    equal the committed ones."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(tmp_path)],
                          cwd=REPO, env=env, capture_output=True, text=True,
@@ -56,7 +68,8 @@ def test_port_imports_no_jax(tmp_path):
     for got, want in [("t-result.txt", "golden_tetra-result.txt"),
                       ("golden_tetra-alignment_identities.txt",
                        "golden_tetra-alignment_identities.txt"),
-                      ("b-bubbleinfo.txt", "golden_diploid-bubbleinfo.txt")]:
+                      ("b-bubbleinfo.txt", "golden_diploid-bubbleinfo.txt"),
+                      ("host/h-result.txt", "golden_diploid-result.txt")]:
         with open(tmp_path / got, "rb") as a, \
                 open(os.path.join(data, want), "rb") as b:
             assert a.read() == b.read(), got
@@ -130,19 +143,14 @@ def test_wrappers_check_dtype_shape_contiguity():
     ["--chain-shards", "2"], ["--process-sharding", "chains"],
     ["--backend", "host"]])
 def test_cli_unported_flags_raise(tmp_path, argv, monkeypatch):
-    """Only ``--backend host`` still raises NotImplementedError (the JAX
-    package keeps the host oracle).  The sharding flags are ported: on
-    one CPU device they phase golden_diploid to the committed result, and
+    """No flag raises NotImplementedError any more.  The sharding flags
+    and ``--backend host`` (the numpy oracle, since it was ported) phase
+    golden_diploid on the CPU to the committed result, and
     ``--num-processes 2`` starts the process group through
     ``dist.mesh.initialize_distributed`` (recorded here, not started)."""
     from ahsoka_tpu_torch.cli.main import main
     from ahsoka_tpu_torch.dist import mesh
 
-    if argv[0] == "--backend":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(["phase", "-g", "x.gfa", "-a", "x.gaf", "-o",
-                  str(tmp_path / "o"), "--device", "cpu"] + argv)
-        return
     started = []
     monkeypatch.setattr(mesh, "initialize_distributed",
                         lambda *a, **k: started.append((a, k)))
@@ -163,6 +171,8 @@ def test_cli_unported_flags_raise(tmp_path, argv, monkeypatch):
                                      backend="gloo"))]
     else:
         assert started == []
+    if argv[0] == "--backend":
+        assert list(tmp_path.glob("o-chain*-readset.txt"))
 
 
 def test_beam_dp_raises_not_implemented():

@@ -27,11 +27,32 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _sim(args, tmp_path, timeout=300):
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
-        [sys.executable, "-m", "ahsoka_tpu_torch.dist.sim", "--timeout",
-         str(timeout - 60), "--workdir", str(tmp_path / "sim")] + args,
+        [sys.executable, "-m", "ahsoka_tpu_torch.dist.sim", "--device",
+         "cpu", "--timeout", str(timeout - 60), "--workdir",
+         str(tmp_path / "sim")] + args,
         cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_sim_defaults_to_cuda(tmp_path, monkeypatch):
+    """``--device`` defaults to cuda, and the mesh mode with fewer visible
+    cards than ``--nproc`` raises before it starts any child."""
+    import torch
+
+    from ahsoka_tpu_torch.dist import sim
+
+    assert sim.build_parser().parse_args([]).device == "cuda"
+    started = []
+    monkeypatch.setattr(sim, "run_mesh", lambda args: started.append(args))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--nproc 2"):
+        sim.main(["--workdir", str(tmp_path / "sim")])
+    assert started == []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert sim.main(["--workdir", str(tmp_path / "sim")]) is None
+    assert [a.device for a in started] == ["cuda"]
 
 
 @pytest.mark.parametrize("threads", [1, 2])
