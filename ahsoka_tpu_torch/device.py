@@ -53,3 +53,20 @@ def synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
+
+def card_line(dev: torch.device):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (raises when nvidia-smi fails), or None for the CPU.  A measurement
+    carries it, since a card set below its limit runs slower."""
+    if dev.type != "cuda":
+        return None
+    import subprocess
+
+    index = dev.index if dev.index is not None else 0
+    out = subprocess.run(["nvidia-smi", f"--id={index}",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+

@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases env,kernels     # build + kernel checks only
     python3 chip_smoke.py --phases env,config5s    # one end-to-end run
     python3 chip_smoke.py --phases env,config2     # config2, both drivers
+    python3 chip_smoke.py --phases env,bench       # the benches and studies
+    python3 chip_smoke.py --phases env,config5     # config5 (~3.9M records)
 
 Runs from the repository root with no install, no jax and nothing of the
 JAX package (``ahsoka_tpu``):
@@ -111,7 +113,23 @@ JAX package (``ahsoka_tpu``):
    card, byte-equal, with banded scoring, the sparse solver and one C=1,
    P~10,000 diploid DP; phase wall, stage split, peak device memory and
    planted-truth switch error (below 0.01; the JAX package recorded
-   0.0023 on a TPU).
+   0.0023 on a TPU);
+11. ``bench``: the port's benches on the card: ``ahsoka_tpu_torch.bench``
+   at its default size (diploid DP at 1,024 chains x 1,024 positions and
+   tetraploid at 128 x 256, each through the kernels and their plain
+   versions, the native sequential DP, projection reads/s): every DP
+   kernel launched and ``kernel`` cuda; the roofline rows of
+   ``ahsoka_tpu_torch/scripts/roofline.py`` (every fraction at or below
+   1.05); ``quantify_fastpaths`` (baseline regime, 2,000 reads) and
+   ``profile_ce`` (1,000 reads) on the card and on the CPU, each
+   variant's clusters equal or a near-tie (phase 5b's rule);
+12. ``config5``, only when named (``--phases env,config5``): config5 (3,000
+   ragged chains of ploidy 2, 4 and 6, ~3.9M GAF records) through
+   ``ahsoka_tpu_torch/scripts/bench_e2e.py`` with its inputs and outputs
+   under ``build/bench/``: every chain phased, none failed, all three
+   kernels launched, every hexaploid group on the beam, switch error below
+   0.02; the bench row (stage split, DP window, peak device memory and
+   host RSS) on one line.
 
 Each end-to-end run sets the kernels' launch counts, and the counts of
 beam groups and banded chains run on the card, to 0 just before it and
@@ -132,8 +150,8 @@ roofline bound (``bound``; for a backtrace also the bytes its tiles move)
 and ``library_ms`` null, and the ``{"beam": ...}``, ``{"banded": ...}``,
 ``{"config5s": ...}`` and ``{"dpk_forward_clusters": ...}`` lines with
 the times and counts of phases 2 and 6-8, the ``{"sharded": ...}`` line
-of phase 9 and the ``{"perchain": ...}`` and ``{"host": ...}`` lines of
-phases 5a-5b.
+of phase 9, the ``{"perchain": ...}`` and ``{"host": ...}`` lines of
+phases 5a-5b and the ``{"bench": ...}`` line of phase 11.
 """
 
 from __future__ import annotations
@@ -194,13 +212,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
-
-
 def no_reference_modules(after: str) -> None:
     """Raise when jax or any ahsoka_tpu module has been imported."""
     from ahsoka_tpu_torch.host import loaded_reference_modules
@@ -216,7 +227,7 @@ def no_reference_modules(after: str) -> None:
 def phase_environment(dev) -> None:
     import torch
 
-    from ahsoka_tpu_torch.device import fp32_settings
+    from ahsoka_tpu_torch.device import card_line, fp32_settings
     from ahsoka_tpu_torch.ops import _build
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -224,7 +235,7 @@ def phase_environment(dev) -> None:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
     log("nvcc: " + " | ".join(l for l in nvcc.splitlines() if l.strip())[-120:])
-    log(f"gpu: {nvidia_smi_line()}")
+    log(f"gpu: {card_line(dev)}")
     log(f"tf32 settings: {json.dumps(fp32_settings())}")
     t0 = time.perf_counter()
     _build.load_all(LIBS)
@@ -308,32 +319,6 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-# roofline of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, fp32
-# operations/s on the CUDA cores, int8 operations/s on the tensor cores
-HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
-
-
-def bound(kernel: str, k: int, C: int, P: int):
-    """(least ms the card could take, "bytes" or "operations") for one
-    call of ``kernel`` at ploidy k on C chains of P positions.  Bytes: each
-    input read once, each output written once; a backtrace reads only the
-    P - 1 backpointers its path follows.  Operations: an fp32 add and
-    compare per (source, destination) cell, plus the M * k 0/1 products
-    of its intersection at the int8 tensor-core rate."""
-    from math import comb
-
-    M, S = 2 * k, comb(3 * k - 1, k)
-    if kernel.endswith("backtrace"):
-        nbytes, op_s = 4 * C * (2 * P), 0.0
-    else:
-        nbytes = 4 * C * P * (M + 2 * S) + 4 * C * S + S * M
-        cells = C * max(P - 1, 0) * S * S
-        op_s = 2 * cells / FP32_OPS_S + 2 * cells * M * k / INT8_OPS_S
-    byte_s = nbytes / HBM_BYTES_S
-    return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s
-                                     else "operations")
-
-
 def backtrace_tile_bytes(k: int, C: int, P: int) -> int:
     """Bytes the backtrace's staged tiles move: every backpointer row but
     row 0 of every chain (the bound counts only the P - 1 it follows)."""
@@ -352,6 +337,8 @@ def _kernel_pair_case(pair, case, dev, err) -> dict:
     both.  ``pair``: (forward name, forward, plain forward, backtrace
     name, backtrace, plain backtrace), the forwards taking (cand, node)."""
     import torch
+
+    from ahsoka_tpu_torch.scripts.roofline import bound
 
     fname, fwd, fwd_ref, bname, bt, bt_ref = pair
     name, k, C, P, reps, plain_reps = case
@@ -1202,6 +1189,43 @@ def phase_config2(dev) -> dict:
     return out
 
 
+def phase_config5(dev) -> dict:
+    """config5 (3,000 ragged chains of ploidy 2, 4 and 6, ~3.9M GAF
+    records) through the port's ``scripts/bench_e2e.py`` on the card, with
+    its inputs, ploidy map and outstem under ``build/bench/``: every
+    chain phased and none failed, all three DP kernels launched, every
+    hexaploid DP group on the beam, switch error below 0.02."""
+    from ahsoka_tpu_torch.scripts import BUILD_BENCH, bench_e2e
+
+    t0 = time.perf_counter()
+    gfa, gaf, truth, spec, pmap = bench_e2e.ensure_inputs("config5",
+                                                          BUILD_BENCH)
+    log(f"config5: {len(spec.plan())} chains, {spec.total_reads} GAF "
+        f"records; inputs and ploidy map in {time.perf_counter() - t0:.1f} s")
+    _reset_path_counts()
+    row, art = bench_e2e.phase_e2e(
+        gfa, gaf, os.path.join(BUILD_BENCH, "config5", "run"),
+        ploidy=spec.ploidy, threads=min(os.cpu_count() or 1, 8),
+        truth=truth, ploidy_map=pmap, device=dev)
+    launches = _path_counts()
+    groups = _beam_groups(art.threading)
+    out = {"row": row, "launches": launches, "beam_groups": groups}
+    log(json.dumps({"config5": out}))
+    if row["chains_phased"] != len(spec.plan()) or row["chains_failed"]:
+        raise AssertionError(f"config5: {row['chains_phased']} of "
+                             f"{len(spec.plan())} chains phased, "
+                             f"{row['chains_failed']} failed")
+    if not all(launches[k] for k in DP_KERNELS):
+        raise AssertionError(f"config5: launches {launches}")
+    if not 0 < groups == launches["beam"]:
+        raise AssertionError(f"config5: {launches['beam']} of {groups} "
+                             "beam DP groups ran on the card")
+    err = (row["accuracy_vs_planted_truth"] or {}).get("switch_err_vs_truth")
+    if not (err is not None and err < 0.02):
+        raise AssertionError(f"config5: switch error {err} not below 0.02")
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 def phase_beam(dev) -> dict:
     """The beam DP on the card against the CPU, exactly, at config5s's
@@ -1308,6 +1332,96 @@ def phase_banded(dev) -> dict:
         f"{cpu_s:.2f} s")
     return {"R": R, "P": P, "edges": int(len(gu)), "max_abs_err": err,
             "s": card_s, "cpu_s": cpu_s}
+
+
+# --------------------------------------------------------------- phase 7a
+def _study_vs_cpu(tool: str, card, cpu, dev) -> list:
+    """A study tool's clusters on the card against a CPU run of the same
+    study, variant by variant: equal, or a near-tie (the host phase's
+    rule): equal allele matrices, dense scores within rtol = atol = 1e-4
+    on the two devices, and a different clustering.  Returns the
+    differing variants."""
+    import numpy as np
+
+    from ahsoka_tpu_torch.config import PhasingConfig
+    from ahsoka_tpu_torch.score.device import score_pairs_device
+
+    differing = []
+    if len(card) != len(cpu):
+        raise AssertionError(f"{tool}: {len(card)} studies on the card, "
+                             f"{len(cpu)} on the CPU")
+    for a, b in zip(card, cpu):
+        bad = [v for v in b["clusters"]
+               if not np.array_equal(a["clusters"].get(v), b["clusters"][v])]
+        if not bad:
+            continue
+        ma, mb = a["matrix"], b["matrix"]
+        same_matrix = (np.array_equal(ma.alleles, mb.alleles)
+                       and ma.read_names == mb.read_names)
+        cfg = PhasingConfig()
+        sa = score_pairs_device(ma, cfg, device=dev)
+        sb = score_pairs_device(mb, cfg, device="cpu")
+        close = same_matrix and bool(np.allclose(sa, sb, rtol=1e-4,
+                                                 atol=1e-4))
+        why = {"tool": tool, "reads": a["reads"], "variants": bad,
+               "matrix_equal": same_matrix, "scores_within_1e-4": close,
+               "max_abs_score_diff": (float(np.abs(sa - sb).max())
+                                      if same_matrix else None)}
+        if not close:
+            raise AssertionError(f"{tool}: the card's clusters differ from "
+                                 f"the CPU's, unexplained: {why}")
+        differing.append(why)
+    return differing
+
+
+def phase_bench(dev) -> dict:
+    """The port's benches on the card: ``ahsoka_tpu_torch.bench`` at its
+    default size (every DP kernel launched, ``kernel`` cuda, cells/s of
+    the kernel, the plain version and the native DP), the roofline rows
+    (every fraction at or below 1.05, or ``roofline.row`` raises), and the
+    two study tools at small sizes on the card and on the CPU
+    (``quantify_fastpaths``: one regime, 2,000 reads; ``profile_ce``: 1,000
+    reads), their clusters held to each other (``_study_vs_cpu``)."""
+    from ahsoka_tpu_torch import bench
+    from ahsoka_tpu_torch.scripts import (profile_ce, quantify_fastpaths,
+                                          roofline)
+    from ahsoka_tpu_torch.thread import dp_kernels
+
+    t0 = time.perf_counter()
+    dp_kernels.reset_launch_counts()
+    b = bench.run(device=dev)
+    launches = dp_kernels.launch_counts()
+    bench_s = time.perf_counter() - t0
+    if not (all(launches[k] for k in DP_KERNELS) and b["kernel"] == "cuda"
+            and b["plain_cells_per_s"] and b["baseline_native_cells_per_s"]
+            and b["tetraploid_cells_per_s"]
+            and b["tetraploid_plain_cells_per_s"]):
+        raise AssertionError(f"bench: launches {launches}, result {b}")
+    t0 = time.perf_counter()
+    roof = roofline.run(device=dev)
+    roof_s = time.perf_counter() - t0
+    studies, rows, differing = {}, {}, []
+    for tool, fn, kw in (
+            ("quantify_fastpaths", quantify_fastpaths.study,
+             dict(reads=(2000,), regimes=("baseline",))),
+            ("profile_ce", profile_ce.profile, dict(reads=(1000,)))):
+        t0 = time.perf_counter()
+        card_rows, card = fn(device=dev, workdir=os.path.join(
+            WORK, f"{tool}_card"), **kw)
+        card_s = time.perf_counter() - t0
+        cpu_rows, cpu = fn(device="cpu", workdir=os.path.join(
+            WORK, f"{tool}_cpu"), **kw)
+        if not card_rows or len(card_rows) != len(cpu_rows):
+            raise AssertionError(f"{tool}: rows {card_rows} / {cpu_rows}")
+        differing += _study_vs_cpu(tool, card, cpu, dev)
+        rows[tool] = card_rows
+        studies[tool] = {"card_s": card_s,
+                         "cpu_s": time.perf_counter() - t0 - card_s}
+    out = {"bench": b, "launches": launches, "bench_s": bench_s,
+           "roofline": roof, "roofline_s": roof_s, "studies": studies,
+           "study_rows": rows, "study_clusters_differing": differing}
+    log(json.dumps({"bench": out}))
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1493,9 +1607,10 @@ def phase_sharded_chains(c5) -> dict:
 
 
 PHASES = ("env", "kernels", "golden", "config4s", "config3c", "mixed",
-          "perchain", "host", "beam", "banded", "config5s", "sharded")
+          "perchain", "host", "beam", "banded", "bench", "config5s",
+          "sharded")
 # phases that run only when named (not in "all")
-EXTRA_PHASES = ("config2",)
+EXTRA_PHASES = ("config2", "config5")
 
 
 def main(argv=None) -> int:
@@ -1525,7 +1640,7 @@ def main(argv=None) -> int:
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from ahsoka_tpu_torch.device import resolve_device
+    from ahsoka_tpu_torch.device import card_line, resolve_device
 
     dev = resolve_device("cuda")
     phase_environment(dev)
@@ -1542,6 +1657,9 @@ def main(argv=None) -> int:
         no_reference_modules("the per-chain and host runs")
     beam = phase_beam(dev) if "beam" in phases else None
     banded = phase_banded(dev) if "banded" in phases else None
+    benches = phase_bench(dev) if "bench" in phases else None
+    if benches:
+        no_reference_modules("the benches")
     sharded = None
     if "sharded" in phases:
         sharded = {"mesh_config3c": phase_sharded_mesh(dev, e2e["config3c"]),
@@ -1550,9 +1668,14 @@ def main(argv=None) -> int:
     if "config2" in phases:
         phase_config2(dev)
         no_reference_modules("config2")
+    if "config5" in phases:
+        phase_config5(dev)
+        no_reference_modules("config5")
     if partial:
         log("partial run: no result line")
         return 0
+
+    from ahsoka_tpu_torch.scripts.roofline import bound
 
     no_reference_modules("the whole smoke")
     kernels = []
@@ -1582,7 +1705,8 @@ def main(argv=None) -> int:
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"perchain": perchain}))
     log(json.dumps({"host": host}))
-    log(nvidia_smi_line())
+    log(json.dumps({"bench": benches}))
+    log(card_line(dev))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

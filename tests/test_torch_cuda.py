@@ -443,3 +443,26 @@ def test_cuda_perchain_and_host_goldens(cuda_device, tmp_path, golden, kw,
     forward = launches["dpk_forward_warp"] + launches["dpk_forward"]
     want = 1 if backend == "jax" else 0
     assert (forward, launches["dpk_backtrace"]) == (want, want)
+
+
+def test_cuda_bench_quick(cuda_device, capsys):
+    """``python -m ahsoka_tpu_torch.bench --quick`` on the card: the
+    kernel route is timed (``dpk_forward_warp`` and ``dpk_backtrace``
+    launched), beside the plain versions, the native DP and the
+    projection, with the card's nvidia-smi line."""
+    import json
+
+    from ahsoka_tpu_torch import bench
+    from ahsoka_tpu_torch.thread import dp_kernels
+
+    dp_kernels.reset_launch_counts()
+    assert bench.main(["--quick"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    launches = dp_kernels.launch_counts()
+    assert launches["dpk_forward_warp"] and launches["dpk_backtrace"]
+    assert out["kernel"] == "cuda" and out["device"].startswith("cuda")
+    for key in ("value", "plain_cells_per_s", "baseline_native_cells_per_s",
+                "projection_reads_per_s", "vs_baseline"):
+        assert np.isfinite(out[key]) and out[key] > 0
+    assert out["value"] > out["plain_cells_per_s"]
+    assert out["gpu"] and "," in out["gpu"]

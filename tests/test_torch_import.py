@@ -22,7 +22,12 @@ names = [m.name for m in pkgutil.walk_packages(ahsoka_tpu_torch.__path__,
 assert {"ahsoka_tpu_torch.dist.mesh", "ahsoka_tpu_torch.dist.step",
         "ahsoka_tpu_torch.dist.sim", "ahsoka_tpu_torch.thread._native_dp",
         "ahsoka_tpu_torch.thread.dp_assoc", "ahsoka_tpu_torch.utils.editdist",
-        "ahsoka_tpu_torch.utils.kmers"} <= set(names), names
+        "ahsoka_tpu_torch.utils.kmers", "ahsoka_tpu_torch.bench",
+        "ahsoka_tpu_torch.scripts.bench_e2e",
+        "ahsoka_tpu_torch.scripts.roofline",
+        "ahsoka_tpu_torch.scripts.quantify_fastpaths",
+        "ahsoka_tpu_torch.scripts.profile_ce",
+        "ahsoka_tpu_torch.scripts.plot_bubbles"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -44,18 +49,27 @@ from ahsoka_tpu_torch.thread._native_dp import native_dp_available
 assert native_dp_available()
 assert main(["only-bubbles", "-g", os.path.join(data, "golden_diploid.gfa"),
              "-o", os.path.join(work, "b")]) == 0
+from ahsoka_tpu_torch import bench
+from ahsoka_tpu_torch.scripts import plot_bubbles, profile_ce, roofline
+assert bench.main(["--quick", "--device", "cpu"]) == 0
+rows, _ = profile_ce.profile(reads=(200,), bubbles=20, skip_sparse=True,
+                             device="cpu", workdir=os.path.join(work, "pc"))
+assert [r["variant"] for r in rows] == ["dense", "collapsed"]
+assert plot_bubbles.main([os.path.join(work, "b-bubbleinfo.txt")]) == 0
+assert roofline.row("diploid", 8, 8, 1.0)["roofline_frac"] < 1.05
 from ahsoka_tpu_torch.host import loaded_reference_modules
 print(len(names), loaded_reference_modules(sys.modules))
 """
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every port module (the sharded layouts' ``dist/`` and the DP
-    oracles included) and chip_smoke imported, golden_tetra phased on the
-    CPU, golden_diploid phased by the host backend, the native DP built
-    and only-bubbles run on golden_diploid, in a fresh process: no jax, no
-    ahsoka_tpu and no ahsoka_tpu.* module was loaded, and the outputs
-    equal the committed ones."""
+    """Every port module (the sharded layouts' ``dist/``, the DP oracles,
+    the bench and the study tools included) and chip_smoke imported,
+    golden_tetra phased on the CPU, golden_diploid phased by the host
+    backend, the native DP built, only-bubbles run on golden_diploid, and
+    the bench, profile_ce, plot_bubbles and the roofline model run, in a
+    fresh process: no jax, no ahsoka_tpu and no ahsoka_tpu.* module was
+    loaded, and the outputs equal the committed ones."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(tmp_path)],
                          cwd=REPO, env=env, capture_output=True, text=True,

@@ -205,6 +205,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from ahsoka_tpu_torch.device import card_line
     from ahsoka_tpu_torch.ops import minplus_stream as ms
     from ahsoka_tpu_torch.ops.minplus import (backtrace_ref,
                                               minplus_forward_ref)
@@ -263,7 +264,7 @@ def main(argv=None) -> int:
                 if not torch.equal(st, backtrace_ref(bp, fs)):
                     raise AssertionError(f"base != plain at {shape}")
             result[name][shape] = cs._median_ms(run, 9) * 1e3 / (P - 1)
-    card = cs.nvidia_smi_line()
+    card = card_line(dev)
     print(card)
     for name, row in result.items():
         if not row:
