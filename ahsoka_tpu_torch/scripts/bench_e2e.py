@@ -77,6 +77,22 @@ def ensure_inputs(config_name: str, workdir: str):
     return gfa, gaf, truth, spec, pmap
 
 
+def bench_settings(ploidy: int, ploidy_map: dict | None, threads: int,
+                   max_coverage: int | None = 64, backend: str = "jax"
+                   ) -> dict:
+    """``PhasingConfig`` keywords of a run at the bench settings: no
+    readset debug files, coverage cap ``max_coverage``, the balanced
+    genotype prior above ploidy 2 (the reference's biallelic prior
+    mis-scores planted k-allelic bubbles), beam width 2048 when a chain
+    has ploidy 6 or more."""
+    max_k = max([ploidy] + list((ploidy_map or {}).values()))
+    return dict(ploidy=ploidy, debug_readset_files=False,
+                max_coverage=max_coverage, threads=threads,
+                ploidy_map=ploidy_map, backend=backend,
+                dp_beam_width=(2048 if max_k >= 6 else 0),
+                genotype_prior=("balanced" if max_k > 2 else "reference"))
+
+
 def phase_e2e(gfa: str, gaf: str, outstem: str, *, ploidy: int = 2,
               max_coverage: int | None = 64, threads: int = 1,
               truth: str | None = None, ploidy_map: dict | None = None,
@@ -95,15 +111,8 @@ def phase_e2e(gfa: str, gaf: str, outstem: str, *, ploidy: int = 2,
     from ahsoka_tpu_torch.pipeline import run_phase
 
     dev = resolve_device(device)
-    # ploidy > 2 needs the balanced genotype prior: the reference's
-    # biallelic prior mis-scores planted k-allelic bubbles
-    max_k = max([ploidy] + list((ploidy_map or {}).values()))
-    cfg = PhasingConfig(ploidy=ploidy, debug_readset_files=False,
-                        max_coverage=max_coverage, threads=threads,
-                        ploidy_map=ploidy_map, backend=backend,
-                        dp_beam_width=(2048 if max_k >= 6 else 0),
-                        genotype_prior=("balanced" if max_k > 2
-                                        else "reference"))
+    cfg = PhasingConfig(**bench_settings(ploidy, ploidy_map, threads,
+                                         max_coverage, backend))
     os.makedirs(os.path.dirname(outstem) or ".", exist_ok=True)
     if not resume:
         for f in glob.glob(f"{outstem}-chain*-result.txt"):

@@ -180,6 +180,11 @@ def config5_plan(num_chains: int = 3000, min_bubbles: int = 10,
     return plan
 
 
+# chip_smoke.py's small mixed-ploidy run: four chains (60, 60, 60 and 20
+# bubbles) of ploidy 2, 3, 4 and 5
+MIXED = SynthSpec(chain_plan=[(60, 2), (60, 3), (60, 4), (20, 5)], span=3,
+                  coverage_per_hap=8.0, error_rate=0.02, seed=11)
+
 # BASELINE.md measurement configs (2 and 4 are the single-host scales
 # measured end to end)
 CONFIGS = {

@@ -134,9 +134,23 @@ JAX package (``ahsoka_tpu``):
 Each end-to-end run sets the kernels' launch counts, and the counts of
 beam groups and banded chains run on the card, to 0 just before it and
 reads them just after, then re-threads its DP inputs once more on the
-card under torch.profiler for the DP kernels' device time.  After the
-golden runs, after config5s, after the per-chain and host runs and at
-the end no jax and no ahsoka_tpu module may be loaded.  Any failure
+card under torch.profiler for the DP kernels' device time.  config4s,
+config3c, mixed, config5s and config2 are then held to the JAX package's
+reference digests (``ahsoka_tpu_torch/data/jax_reference.json``, written
+on the CPU by ``tools/jax_reference.py``): the spec, the settings and
+the ploidy map must be the reference's, and every result file equal to
+it, or the chain is one the file ``allowed`` (a difference that comes
+from the JAX package's float32 summation order, with the port's digest
+recorded), or a near-tie: equal allele matrices on the card and the
+CPU, dense scores within rtol = atol = 1e-4 or banded edges equal with
+weights within 1e-5, a different clustering on the CPU, and the CPU's
+chain file equal to the reference's.  More than 5% of a run's chains
+differing fails before any chain is re-run.  Each run prints
+``{"reference": {"config", "chains", "equal", "near_tie", "allowed",
+...}}``; the per-chain and sharded runs are byte-equal to these runs and
+inherit the check.  After the golden runs, after config5s, after the
+per-chain and host runs and at the end no jax and no ahsoka_tpu module
+may be loaded.  Any failure
 raises and exits non-zero.  The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 before it stand the card's ``nvidia-smi`` name/power-limit line, a
@@ -726,6 +740,7 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     return {"launches": launches, "wall": wall, "beam_groups": groups,
             "config": cfg, "ploidy_map": pmap, "work": work,
             "inputs": (gfa, gaf, truth), "stem": outstem, "threading": th,
+            "art": art,
             "chains": len(plan), "spec": spec, "kernels": kernels,
             "max_switch_err": max_switch_err, "banded": banded,
             "dp_kernel_device_ms": kernel_ms, "peak_device_bytes": peak,
@@ -763,9 +778,9 @@ def _dp_kernel_device_ms(dev, th, cfg) -> dict:
 
 def e2e_runs(dev, which) -> dict:
     """The end-to-end runs named in ``which`` (config4s, config3c, mixed,
-    config5s)."""
+    config5s), each held to the JAX package's reference digests."""
     from ahsoka_tpu_torch.config import PhasingConfig
-    from ahsoka_tpu_torch.utils.synth import CONFIGS, SynthSpec
+    from ahsoka_tpu_torch.utils.synth import CONFIGS, MIXED
 
     threads = min(os.cpu_count() or 1, 8)
     bench = dict(debug_readset_files=False, max_coverage=64, threads=threads)
@@ -784,11 +799,8 @@ def e2e_runs(dev, which) -> dict:
             PhasingConfig(ploidy=4, genotype_prior="balanced", **bench),
             general, 0.02)
     if "mixed" in which:
-        spec = SynthSpec(chain_plan=[(60, 2), (60, 3), (60, 4), (20, 5)],
-                         span=3, coverage_per_hap=8.0, error_rate=0.02,
-                         seed=11)
         out["mixed"] = phase_e2e(
-            dev, "mixed", spec,
+            dev, "mixed", MIXED,
             PhasingConfig(genotype_prior="balanced", **bench),
             DP_KERNELS, MIXED_MAX_SWITCH_ERR, ploidy_map=True)
     if "config5s" in which:
@@ -799,6 +811,177 @@ def e2e_runs(dev, which) -> dict:
                           dp_beam_width=BEAM_WIDTH, **bench),
             DP_KERNELS, 0.02, ploidy_map=True, beam=True,
             banded=True)
+    for name, r in out.items():
+        r["reference"] = reference_check(dev, name, r)
+    return out
+
+
+# ------------------------------------------------- the JAX reference
+# a run whose chains differ from the reference more often than this fails
+# before any chain is re-run on the CPU
+REFERENCE_MAX_DIFFERING = 0.05
+
+
+def reference_verdict(name: str, entry: dict, got: dict, explain) -> dict:
+    """Hold a run's ``run_digests`` ``got`` to the JAX package's reference
+    ``entry`` (``ahsoka_tpu_torch/data/jax_reference.json``), chain by
+    chain.  A differing chain passes if it is one of the entry's
+    ``allowed`` chains with the port's digest recorded there, or a
+    near-tie: ``explain(chain_id)`` (``_near_tie_evidence``) finds equal
+    allele matrices on the card and the CPU, scores that agree (dense
+    within rtol = atol = 1e-4, banded edges equal with weights within
+    1e-5), a CPU clustering that differs from the card's, and a CPU chain
+    file equal to the reference's.  Anything else raises; more than
+    ``REFERENCE_MAX_DIFFERING`` of the chains differing raises before
+    ``explain`` is called."""
+    from ahsoka_tpu_torch.utils.digest import compare_digests
+
+    diff = compare_digests(entry["digests"], got)
+    chains = len(entry["digests"]["chains"])
+    if diff["extra"] or "bubbleinfo" in diff["files"] \
+            or ("result" in diff["files"] and not diff["chains"]):
+        raise AssertionError(f"{name}: the run's files differ from the JAX "
+                             f"package's beyond its chains: {diff}")
+    allowed = {int(a["chain"]): a["port_digest"]
+               for a in entry.get("allowed", [])}
+    ok_allowed = [c for c in diff["chains"]
+                  if allowed.get(c) == got["chains"].get(str(c))]
+    rest = [c for c in diff["chains"] if c not in ok_allowed]
+    if len(rest) > REFERENCE_MAX_DIFFERING * chains:
+        raise AssertionError(f"{name}: {len(rest)} of {chains} chains differ "
+                             f"from the JAX package's: {rest[:20]}")
+    evidence = []
+    for c in rest:
+        why = explain(c)
+        if not (why["matrix_equal"] and why["scores_close"]
+                and not why["same_clusters"]
+                and why["cpu_digest"] == entry["digests"]["chains"][str(c)]):
+            raise AssertionError(f"{name}: chain {c} differs from the JAX "
+                                 f"package's, unexplained: {why}")
+        evidence.append(why)
+    return {"config": name, "chains": chains,
+            "equal": chains - len(diff["chains"]), "near_tie": rest,
+            "allowed": ok_allowed, "near_tie_evidence": evidence}
+
+
+def _chain_reads(art, chain_id: int) -> dict:
+    """A chain's reads as the run held them: its columnar bucket, or its
+    alignment objects."""
+    if art.gaf_columns is not None:
+        return {"alignments": None, "columns": art.gaf_columns,
+                "bucket": art.chain_buckets.get(chain_id)}
+    return {"alignments": art.alignments.chain_alignments(chain_id)}
+
+
+def _chain_pieces(device, art, cfg, chain_id: int, stem: str) -> dict:
+    """One chain of a run through the port's allele matrix, scoring and
+    cluster editing on ``device``, with the batched driver's choices
+    (collapsing, dense or banded scoring)."""
+    import numpy as np
+
+    from ahsoka_tpu_torch.cluster._native_ce import cluster_editing_sparse
+    from ahsoka_tpu_torch.cluster.editing import cluster_editing
+    from ahsoka_tpu_torch.phase import (ChainPhasingResult, _chain_collapse,
+                                        _chain_matrix_stage, chain_config)
+    from ahsoka_tpu_torch.score.banded import score_pairs_banded
+    from ahsoka_tpu_torch.score.device import score_pairs_device
+
+    ccfg = chain_config(cfg, chain_id)
+    res = ChainPhasingResult(chain_id=chain_id, num_bubbles=0, skipped=True)
+    matrix = _chain_matrix_stage(chain_id, art.allele_paths[chain_id],
+                                 outstem=stem, config=ccfg, result=res,
+                                 device=device, **_chain_reads(art, chain_id))
+    collapse = _chain_collapse(matrix, ccfg)
+    scored, mult = ((collapse.matrix, collapse.mult) if collapse is not None
+                    else (matrix, None))
+    banded = scored.num_reads > ccfg.banded_scoring_threshold
+    if banded:
+        u, v, w = score_pairs_banded(scored, ccfg, mult=mult, device=device)
+        if mult is not None:
+            w = w * mult[u] * mult[v]
+        clusters = cluster_editing_sparse(scored.num_reads, u, v, w,
+                                          mode=ccfg.ce_mode)
+        scores = (u, v, w)
+    else:
+        scores = score_pairs_device(scored, ccfg, mult=mult, device=device)
+        w = scores if mult is None else scores * np.outer(mult, mult)
+        if mult is not None:
+            np.fill_diagonal(w, 0.0)
+        clusters = cluster_editing(w, mode=ccfg.ce_mode)
+    return {"matrix": matrix, "banded": banded, "scores": scores,
+            "clusters": clusters}
+
+
+def _near_tie_evidence(dev, r: dict, chain_id: int) -> dict:
+    """Why chain ``chain_id`` of the run ``r`` differs from the reference:
+    its allele matrix, scores and clusters on the card against the CPU,
+    and the digest of its chain file phased by the port on the CPU."""
+    import io
+
+    import numpy as np
+
+    from ahsoka_tpu_torch.phase import phase_one_chain
+    from ahsoka_tpu_torch.utils.digest import file_digest
+
+    art, cfg = r["art"], r["config"]
+    stem = os.path.join(r["work"], "reference_cpu", "run")
+    os.makedirs(os.path.dirname(stem), exist_ok=True)
+    card = _chain_pieces(dev, art, cfg, chain_id, stem)
+    cpu = _chain_pieces("cpu", art, cfg, chain_id, stem)
+    a, b = card["matrix"], cpu["matrix"]
+    matrix_equal = (np.array_equal(a.alleles, b.alleles)
+                    and a.read_names == b.read_names)
+    if card["banded"] != cpu["banded"]:
+        close, err = False, None
+    elif card["banded"]:
+        (au, av, aw), (bu, bv, bw) = card["scores"], cpu["scores"]
+        same = np.array_equal(au, bu) and np.array_equal(av, bv)
+        err = float(np.abs(aw - bw).max(initial=0.0)) if same else None
+        close = same and bool(np.allclose(aw, bw, rtol=1e-5, atol=1e-5))
+    else:
+        same = card["scores"].shape == cpu["scores"].shape
+        err = (float(np.abs(card["scores"] - cpu["scores"]).max(initial=0.0))
+               if same else None)
+        close = same and bool(np.allclose(card["scores"], cpu["scores"],
+                                          rtol=1e-4, atol=1e-4))
+    phase_one_chain(chain_id, art.allele_paths[chain_id], graph=art.graph,
+                    outstem=stem, full_output=io.StringIO(), config=cfg,
+                    backend="jax", device="cpu", **_chain_reads(art, chain_id))
+    return {"chain": chain_id, "reads": a.num_reads,
+            "banded": card["banded"], "matrix_equal": matrix_equal,
+            "scores_close": close, "max_abs_score_diff": err,
+            "clusters": [len(card["clusters"]), len(cpu["clusters"])],
+            "same_clusters": card["clusters"] == cpu["clusters"],
+            "cpu_digest": file_digest(
+                f"{stem}-chain{chain_id}-result.txt")}
+
+
+def reference_check(dev, name: str, r: dict) -> dict:
+    """The run ``r`` of phase_e2e against the JAX package's reference
+    entry ``name``: the spec, the settings and the ploidy map first (a
+    mismatch raises), then every file (``reference_verdict``).  Prints
+    the ``reference`` line."""
+    from ahsoka_tpu_torch.utils.digest import (config_fields,
+                                               load_reference,
+                                               ploidy_map_json, run_digests,
+                                               spec_fields)
+
+    entry = load_reference()[name]
+    ours = {"spec": spec_fields(r["spec"]),
+            "config": config_fields(r["config"]),
+            "ploidy_map": ploidy_map_json(r["ploidy_map"])}
+    for key, value in ours.items():
+        if value != entry[key]:
+            raise AssertionError(f"{name}: the run's {key} {value} is not "
+                                 f"the reference's {entry[key]}")
+    t0 = time.perf_counter()
+    got = run_digests(r["stem"])
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = reference_verdict(name, entry, got,
+                            lambda c: _near_tie_evidence(dev, r, c))
+    out.update(digest_s=digest_s, near_tie_rerun_s=time.perf_counter() - t0)
+    log(json.dumps({"reference": out}))
     return out
 
 
@@ -1175,6 +1358,7 @@ def phase_config2(dev) -> dict:
                         threads=threads)
     r = phase_e2e(dev, "config2", CONFIGS["config2"], cfg,
                   ("dpk_forward_warp", "dpk_backtrace"), 0.01, banded=True)
+    reference = reference_check(dev, "config2", r)
     s = perchain_run(dev, "config2", r)
     chain = r["chain_stage_seconds"][0]
     out = {"phase_s": r["stage_seconds"]["phase"], "stages": chain,
@@ -1184,7 +1368,7 @@ def phase_config2(dev) -> dict:
            "switch_err_vs_truth": r["accuracy"].get("switch_err_vs_truth"),
            "jax_package_switch_err_tpu": 0.0023,
            "dp_kernel_device_ms": r["dp_kernel_device_ms"],
-           "perchain": s}
+           "reference": reference, "perchain": s}
     log(json.dumps({"config2": out}))
     return out
 

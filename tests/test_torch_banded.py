@@ -122,3 +122,50 @@ def test_native_helpers_load_before_the_worker_pool(tmp_path, monkeypatch):
         assert seen[0] == (main, []), (name, seen[0])
         # the pool's workers did call the loader afterwards
         assert any(t != main for t, _ in seen[1:]), name
+
+
+def test_banded_float32_noise_leaves_the_clusters():
+    """The JAX package sums the banded ``pd_sum`` in float32, the port in
+    float64 (exact).  On the 3,000-read chain where that shows
+    (chip_smoke.banded_matrix(3000, 600, seed 9)), the JAX package keeps
+    267 edges of |w| <= 1.53e-5 whose exact score is 0 and moves the
+    rest by up to 9.2e-5; its banded branch (``_chain_cluster_dp_stage``
+    above the banded threshold, the native sparse solver) still gives
+    the port's clusters and DP inputs."""
+    import dataclasses
+
+    import chip_smoke
+    from ahsoka_tpu import phase as jphase
+    from ahsoka_tpu.score.pairwise import AlleleMatrix
+    from ahsoka_tpu_torch import phase as tphase
+    from ahsoka_tpu_torch.config import PhasingConfig as TConfig
+
+    pm = chip_smoke.banded_matrix(3000, 600, seed=9)
+    jm = AlleleMatrix(alleles=pm.alleles, positions=pm.positions,
+                      read_names=pm.read_names)
+    want = jax_banded(jm, PhasingConfig())
+    got = score_pairs_banded(pm, TConfig(), device="cpu")
+    jax_edges = dict(zip(zip(want[0].tolist(), want[1].tolist()),
+                         want[2].tolist()))
+    port_edges = dict(zip(zip(got[0].tolist(), got[1].tolist()),
+                          got[2].tolist()))
+    extra = set(jax_edges) - set(port_edges)
+    assert set(port_edges) <= set(jax_edges)
+    assert len(extra) == 267
+    assert max(abs(jax_edges[e]) for e in extra) <= 1.6e-5
+    assert max(abs(jax_edges[e] - w) for e, w in port_edges.items()) < 1e-4
+
+    jres = jphase.ChainPhasingResult(chain_id=0, num_bubbles=600, skipped=True)
+    tres = tphase.ChainPhasingResult(chain_id=0, num_bubbles=600, skipped=True)
+    jdp = jphase._chain_cluster_dp_stage(
+        jm, dataclasses.replace(PhasingConfig(),
+                                banded_scoring_threshold=1000), jres)
+    tdp = tphase._chain_cluster_dp_stage(
+        pm, dataclasses.replace(TConfig(), banded_scoring_threshold=1000),
+        tres, device="cpu")
+    assert "scoring" in jres.stage_seconds and "scoring" in tres.stage_seconds
+    assert jres.num_clusters == tres.num_clusters == 15
+    for field in ("positions", "candidates", "num_candidates", "coverage",
+                  "consensus", "genotypes"):
+        np.testing.assert_array_equal(getattr(tdp, field),
+                                      getattr(jdp, field), err_msg=field)
