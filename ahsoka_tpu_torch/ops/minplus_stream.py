@@ -43,6 +43,7 @@ import torch
 
 from ahsoka_tpu_torch.ops import _build
 from ahsoka_tpu_torch.ops.minplus import backtrace_ref, minplus_forward_ref
+from ahsoka_tpu_torch.utils import substage
 
 _LIB = "minplus_stream"
 MAX_PLOIDY = 5                   # the build instantiates k = 1..5
@@ -217,8 +218,12 @@ def minplus_forward_streamed(candidates: torch.Tensor,
     if candidates.shape[:2] != node_costs.shape[:2]:
         raise ValueError(f"candidates {tuple(candidates.shape)} and "
                          f"node_costs {tuple(node_costs.shape)} disagree")
-    counts = np.asarray(counts_table.cpu() if torch.is_tensor(counts_table)
-                        else counts_table)
+    if torch.is_tensor(counts_table):
+        counts = counts_table.cpu().numpy()
+        substage.count("device.round_trips")
+        substage.count("device.fetch_bytes", counts.nbytes)
+    else:
+        counts = np.asarray(counts_table)
     S = node_costs.shape[2]
     if counts.shape != (S, M):
         raise ValueError(f"counts table {counts.shape} does not match "
@@ -267,6 +272,7 @@ def _forward(candidates: torch.Tensor, node_costs: torch.Tensor,
                   else "dpk_forward")
         _check_launch(lib, err, f"{kernel} (G={G})")
         KERNEL_LAUNCHES[kernel] += 1
+        substage.count("dp.kernel_launches")
         if caller is not None:
             caller.launches += 1
         return fin, bp
@@ -314,5 +320,6 @@ def _backtrace(backptrs: torch.Tensor, final_state: torch.Tensor,
                                        states.data_ptr(), C, P, S, stream)
         _check_launch(lib, err, "dpk_backtrace")
         KERNEL_LAUNCHES["dpk_backtrace"] += 1
+        substage.count("dp.kernel_launches")
         caller.launches += 1
         return states

@@ -71,21 +71,15 @@ def device_warmup(stage_seconds: Dict[str, float], device) -> None:
     """Create the device's context and make one trivial round trip before
     the phase timer starts (``ahsoka_tpu/phase.py:36-64``), so the first
     device stage is not charged for them.  Records the elapsed time under
-    ``device_warmup`` (also when it fails) and the least of three tiny
-    fetches under ``device_rtt_est``.  A failure raises: the port has no
-    fallback."""
-    t_w = time.perf_counter()
+    ``device_warmup`` (also when it fails).  A failure raises: the port
+    has no fallback."""
+    sp = None
     try:
-        x = torch.zeros(8, device=device)
-        x.sum().item()
-        probes = []
-        for _ in range(3):
-            t = time.perf_counter()
-            x.sum().item()
-            probes.append(time.perf_counter() - t)
-        stage_seconds["device_rtt_est"] = min(probes)
+        with substage.span("device_warmup") as sp:
+            substage.count("device.round_trips")
+            torch.zeros(8, device=device).sum().item()
     finally:
-        stage_seconds["device_warmup"] = time.perf_counter() - t_w
+        stage_seconds["device_warmup"] = sp.wall
 
 
 @dataclasses.dataclass
@@ -136,32 +130,39 @@ def phase_one_chain(chain_id: int,
                                bucket=bucket, device=device, devices=devices)
         if dp is None:
             return result
-        t = time.perf_counter()
-        raw = thread_chain_device(dp, config, device=device, devices=devices)
-        result.stage_seconds["threading"] = time.perf_counter() - t
+        with substage.span("dp") as s_dp:
+            raw = thread_chain_device(dp, config, device=device,
+                                      devices=devices)
+        result.stage_seconds["threading"] = s_dp.wall
     else:
-        readsets = build_chain_readsets(bubble_paths, alignments, config)
+        with substage.span("readsets"):
+            readsets = build_chain_readsets(bubble_paths, alignments, config)
         testset = readsets.partial_filtered
         if len(testset) == 0:
             log.warning("No reads in ReadSet for chain %d!", chain_id)
             result.reason = "empty filtered readset"
             return result
         _write_readset_debug_files(outstem, chain_id, readsets)
-        scores = score_pairs(readset_to_matrix(testset), config)
-        clusters = cluster_editing(scores, mode=config.ce_mode)
-        dp = build_dp_inputs(testset, clusters, config)
-        raw = thread_chain(dp, config)
+        with substage.span("scoring"):
+            scores = score_pairs(readset_to_matrix(testset), config)
+        with substage.timed("clustering.solver"):
+            clusters = cluster_editing(scores, mode=config.ce_mode)
+        with substage.span("dp_inputs"):
+            dp = build_dp_inputs(testset, clusters, config)
+        with substage.span("dp"):
+            raw = thread_chain(dp, config)
         result.num_reads = len(testset)
         result.num_clusters = len(clusters)
         result.num_positions = dp.num_positions
 
-    result.haplotype_alleles = emit_chain_result(
-        graph=graph, chain_id=chain_id,
-        hap_cluster_path=assign_rows(raw, config.ploidy),
-        consensus_by_cluster=consensus_lookup(dp),
-        dense_positions=[int(p) for p in dp.positions],
-        bubble_paths=bubble_paths, ploidy=config.ploidy,
-        outstem=outstem, full_output=full_output)
+    with substage.span("emit"):
+        result.haplotype_alleles = emit_chain_result(
+            graph=graph, chain_id=chain_id,
+            hap_cluster_path=assign_rows(raw, config.ploidy),
+            consensus_by_cluster=consensus_lookup(dp),
+            dense_positions=[int(p) for p in dp.positions],
+            bubble_paths=bubble_paths, ploidy=config.ploidy,
+            outstem=outstem, full_output=full_output)
     result.skipped = False
     result.threading = (dp, config, raw)
     return result
@@ -188,18 +189,26 @@ def _chain_collapse(matrix, config):
     weighted [G, G] matrix; larger group sets go through banded scoring
     over the distinct rows (multiplicity-weighted stats + m_u*m_v edge
     weights)."""
-    if not config.ce_collapse_identical \
-            or matrix.num_reads < config.ce_collapse_min_reads:
-        return None
-    from ahsoka_tpu_torch.project.collapse import collapse_reads
-    cm = collapse_reads(matrix)
-    # redundancy gate (config.ce_collapse_max_ratio): collapse only
-    # where duplicate rows at least halve the instance — the regime
-    # where the contracted trace tracks the exact one; low-redundancy
-    # (noisy) chains run exact uncollapsed (the regime study's one
-    # contract violation lived at G/R = 0.53)
-    ratio = getattr(config, "ce_collapse_max_ratio", 0.5)
-    return cm if cm.num_groups <= ratio * matrix.num_reads else None
+    cm = None
+    if config.ce_collapse_identical \
+            and matrix.num_reads >= config.ce_collapse_min_reads:
+        from ahsoka_tpu_torch.project.collapse import collapse_reads
+        with substage.span("collapse"):
+            cm = collapse_reads(matrix)
+        # redundancy gate (config.ce_collapse_max_ratio): collapse only
+        # where duplicate rows at least halve the instance — the regime
+        # where the contracted trace tracks the exact one; low-redundancy
+        # (noisy) chains run exact uncollapsed (the regime study's one
+        # contract violation lived at G/R = 0.53)
+        ratio = getattr(config, "ce_collapse_max_ratio", 0.5)
+        if cm.num_groups > ratio * matrix.num_reads:
+            cm = None
+    substage.count("rows.before_collapse", matrix.num_reads)
+    substage.count("rows.after_collapse",
+                   matrix.num_reads if cm is None else cm.num_groups)
+    if cm is not None:
+        substage.count("chains.collapsed")
+    return cm
 
 
 _COLLAPSE_UNSET = object()
@@ -305,7 +314,9 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
         marks["collapse"] = time.perf_counter() - t
     effective_rows = (collapse.num_groups if collapse is not None
                       else matrix.num_reads)
-    if effective_rows > config.banded_scoring_threshold:
+    banded = effective_rows > config.banded_scoring_threshold
+    substage.count("chains.banded" if banded else "chains.dense")
+    if banded:
         # large chain: banded scoring -> sparse edges -> native sparse
         # solver; with a collapse the band runs over the distinct rows
         # and edges weigh m_u * m_v * s(u, v)
@@ -313,18 +324,19 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
             cluster_editing_sparse
         from ahsoka_tpu_torch.score.banded import score_pairs_banded
 
-        t = time.perf_counter()
-        if collapse is not None:
-            from ahsoka_tpu_torch.project.collapse import expand_clusters
-            eu, ev, ew = score_pairs_banded(collapse.matrix, config,
-                                            mult=collapse.mult,
-                                            device=device)
-            ew = ew * collapse.mult[eu] * collapse.mult[ev]
-            n_nodes = collapse.num_groups
-        else:
-            eu, ev, ew = score_pairs_banded(matrix, config, device=device)
-            n_nodes = matrix.num_reads
-        marks["scoring"] = time.perf_counter() - t
+        with substage.span("banded_scoring") as s_band:
+            if collapse is not None:
+                from ahsoka_tpu_torch.project.collapse import expand_clusters
+                eu, ev, ew = score_pairs_banded(collapse.matrix, config,
+                                                mult=collapse.mult,
+                                                device=device)
+                ew = ew * collapse.mult[eu] * collapse.mult[ev]
+                n_nodes = collapse.num_groups
+            else:
+                eu, ev, ew = score_pairs_banded(matrix, config,
+                                                device=device)
+                n_nodes = matrix.num_reads
+        marks["scoring"] = s_band.wall
         log.info("banded scoring: %d rows -> %d edges in %.1fs",
                  n_nodes, len(ew), marks["scoring"])
         t = time.perf_counter()
@@ -341,9 +353,10 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
 
         t = time.perf_counter()
         if scores is None:
-            scores = score_pairs_device(collapse.matrix, config,
-                                        mult=collapse.mult, device=device,
-                                        devices=devices)
+            with substage.span("scoring"):
+                scores = score_pairs_device(collapse.matrix, config,
+                                            mult=collapse.mult,
+                                            device=device, devices=devices)
         # weighted group graph: edge weight m_u * m_v * s(u, v)
         w = scores * np.outer(collapse.mult, collapse.mult)
         np.fill_diagonal(w, 0.0)
@@ -358,17 +371,19 @@ def _chain_cluster_dp_stage(matrix, config, result, scores=None,
     else:
         t = time.perf_counter()
         if scores is None:
-            scores = score_pairs_device(matrix, config, device=device,
-                                        devices=devices)
+            with substage.span("scoring"):
+                scores = score_pairs_device(matrix, config, device=device,
+                                            devices=devices)
         marks["scoring"] = marks.get("scoring", 0.0) \
             + (time.perf_counter() - t)
         t = time.perf_counter()
         with substage.timed("clustering.solver"):
             clusters = cluster_editing(scores, mode=config.ce_mode)
         marks["clustering"] = time.perf_counter() - t
-    cluster_of = assignment_from_clusters(clusters, matrix.num_reads)
-    dp = build_dp_inputs_from_matrix(matrix.alleles, matrix.positions,
-                                     cluster_of, config)
+    with substage.span("dp_inputs"):
+        cluster_of = assignment_from_clusters(clusters, matrix.num_reads)
+        dp = build_dp_inputs_from_matrix(matrix.alleles, matrix.positions,
+                                         cluster_of, config)
     result.num_reads = matrix.num_reads
     result.num_clusters = len(clusters)
     result.num_positions = dp.num_positions
@@ -381,10 +396,11 @@ def _prepare_chain_dp(chain_id, bubble_paths, alignments, outstem, config,
     """The device backend's chain pipeline up to the DP inputs
     (projection, matrix assembly, scoring, clustering).  Returns DPInputs,
     or None with result.reason set."""
-    matrix = _chain_matrix_stage(chain_id, bubble_paths, alignments,
-                                 outstem, config, result, columns=columns,
-                                 bucket=bucket, device=device,
-                                 devices=devices)
+    with substage.span("matrix"):
+        matrix = _chain_matrix_stage(chain_id, bubble_paths, alignments,
+                                     outstem, config, result,
+                                     columns=columns, bucket=bucket,
+                                     device=device, devices=devices)
     if matrix is None:
         return None
     return _chain_cluster_dp_stage(matrix, config, result, device=device,
@@ -460,9 +476,6 @@ def phase_all_chains(art, outstem: str, config: PhasingConfig,
         art.stage_seconds["dp_device_window"] = sum(
             r.stage_seconds.get("threading", 0.0) for r in results)
     art.threading = threading
-    sub = substage.drain()
-    if sub:
-        art.stage_seconds["substages"] = sub
     return results
 
 
@@ -484,18 +497,17 @@ def _dp_frontier_width(config: PhasingConfig, S: int) -> int:
 
 
 def _projection_pre_pass(art, work, config, columns, device, devices
-                         ) -> Tuple[Dict[int, tuple], float]:
+                         ) -> Dict[int, tuple]:
     """Batched projection for every pre-pass chain (<= 512 bubbles; every
     chain when the projection is data-sharded, so that its collectives
     stay on this thread), in slices of 256 chains so one slice's padded
-    inputs are live at a time.  Returns ({chain_id: (inputs, key
-    tables)}, seconds per chain)."""
+    inputs are live at a time.  Returns {chain_id: (inputs, key
+    tables)}."""
     from ahsoka_tpu_torch.project.device import (
         containment_key_tables_many, data_mesh, prepare_chain_inputs,
         prepare_chain_inputs_from_columns)
 
     pre: Dict[int, tuple] = {}
-    t_pre = time.perf_counter()
     sharded = data_mesh(config, devices, device) is not None
     cap = float("inf") if sharded else _PRE_PASS_MAX_BUBBLES
     todo = [chain_id for _size, chain_id in work
@@ -534,8 +546,8 @@ def _projection_pre_pass(art, work, config, columns, device, devices
                 inp.path_onehot_full = None
                 inp.path_onehot_inner = None
             pre[cid] = (inp, tab)
-    share = (time.perf_counter() - t_pre) / max(len(pre), 1) if pre else 0.0
-    return pre, share
+    substage.count("chains.pre_pass", len(pre))
+    return pre
 
 
 def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
@@ -585,10 +597,11 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
             slots.append(len(work))         # placeholder index
             work.append((size, chain_id))
 
-    pre, pre_share = ({}, 0.0)
+    pre: Dict[int, tuple] = {}
     if work:
-        pre, pre_share = _projection_pre_pass(art, work, config, columns,
-                                              device, devices)
+        with substage.span("pre_pass"):
+            pre = _projection_pre_pass(art, work, config, columns, device,
+                                       devices)
 
     def matrix_one(size, chain_id):
         """Pass-1 body: chain -> ("skipped", res, None) or
@@ -606,15 +619,14 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                   if getattr(art, "chain_buckets", None) is not None
                   else None)
         try:
-            matrix = _chain_matrix_stage(
-                chain_id, bubble_paths,
-                (art.alignments.chain_alignments(chain_id)
-                 if columns is None else None),
-                outstem, ccfg, res, columns=columns, bucket=bucket,
-                precomputed=pre.get(chain_id), device=device,
-                devices=devices)
-            if chain_id in pre:
-                res.stage_seconds["projection"] = pre_share
+            with substage.span("matrix"):
+                matrix = _chain_matrix_stage(
+                    chain_id, bubble_paths,
+                    (art.alignments.chain_alignments(chain_id)
+                     if columns is None else None),
+                    outstem, ccfg, res, columns=columns, bucket=bucket,
+                    precomputed=pre.get(chain_id), device=device,
+                    devices=devices)
         except Exception as exc:
             if not keep_going:
                 raise
@@ -662,14 +674,20 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
             return ("skipped", res, None)
         return ("compute", res, (chain_id, bubble_paths, dp, ccfg))
 
-    def _pool_map(fn, items):
-        if config.threads > 1 and len(items) > 1:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(max_workers=config.threads) as pool:
-                return list(pool.map(fn, items))
-        return [fn(it) for it in items]
+    def _pool_map(name, fn, items):
+        """``fn`` over ``items`` on the worker pool, under span ``name``."""
+        with substage.span(name) as pool_span:
+            if config.threads > 1 and len(items) > 1:
+                from concurrent.futures import ThreadPoolExecutor
 
-    prepared = _pool_map(lambda w: matrix_one(*w), work)
+                def task(it):
+                    with substage.within(pool_span):
+                        return fn(it)
+                with ThreadPoolExecutor(max_workers=config.threads) as pool:
+                    return list(pool.map(task, items))
+            return [fn(it) for it in items]
+
+    prepared = _pool_map("matrix_pool", lambda w: matrix_one(*w), work)
 
     def _effective(payload):
         _cid, _bp, matrix, cm, _ccfg = payload
@@ -697,27 +715,27 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
 
     clustered = set()
     for sl in slices:
-        t_sl = time.perf_counter()
-        mats, mults = [], []
-        for i in sl:
-            _cid, _bp, matrix, cm, _ccfg = prepared[i][2]
-            mats.append(cm.matrix if cm is not None else matrix)
-            mults.append(cm.mult if cm is not None else None)
-        many = score_pairs_device_many(mats, config, mults=mults,
-                                       device=device, devices=devices)
-        score_map = dict(zip(sl, many))
-        del many, mats
-        share = (time.perf_counter() - t_sl) / len(sl)
-        for i in sl:
-            prepared[i][1].stage_seconds["scoring"] = share
+        substage.count("scoring.slices")
+        with substage.span("score_slice"):
+            mats, mults = [], []
+            for i in sl:
+                _cid, _bp, matrix, cm, _ccfg = prepared[i][2]
+                mats.append(cm.matrix if cm is not None else matrix)
+                mults.append(cm.mult if cm is not None else None)
+            many = score_pairs_device_many(mats, config, mults=mults,
+                                           device=device, devices=devices)
+            score_map = dict(zip(sl, many))
+            del many, mats
         done = _pool_map(
+            "cluster_pool",
             lambda i: cluster_one(prepared[i], scores=score_map.pop(i)), sl)
         for i, entry in zip(sl, done):
             prepared[i] = entry
         clustered.update(sl)
 
     rest = [i for i in range(len(prepared)) if i not in clustered]
-    done = _pool_map(lambda i: cluster_one(prepared[i]), rest)
+    done = _pool_map("cluster_rest", lambda i: cluster_one(prepared[i]),
+                     rest)
     for i, entry in zip(rest, done):
         prepared[i] = entry
 
@@ -738,39 +756,36 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
         dps.append(dp)
         dp_cfgs.append(ccfg)
 
-    t0 = time.perf_counter()
-    try:
-        paths = thread_chains_batched(dps, config, chain_configs=dp_cfgs,
-                                      device=device, devices=devices)
-    except Exception as exc:
-        # keep_going: retry chain by chain so one sick chain cannot
-        # abort the run; without it the failure propagates
-        if not keep_going:
-            raise
-        log.error("batched threading DP failed (%s: %s); retrying "
-                  "per chain", type(exc).__name__, exc)
-        paths = []
-        for dp, dcfg in zip(dps, dp_cfgs):
-            try:
-                paths.append(thread_chain_device(dp, dcfg, device=device,
-                                                 devices=devices))
-            except Exception as exc2:
-                log.error("per-chain threading failed: %s", exc2)
-                paths.append(None)
-    dp_seconds = time.perf_counter() - t0
+    with substage.span("dp") as s_dp:
+        try:
+            paths = thread_chains_batched(dps, config, chain_configs=dp_cfgs,
+                                          device=device, devices=devices)
+        except Exception as exc:
+            # keep_going: retry chain by chain so one sick chain cannot
+            # abort the run; without it the failure propagates
+            if not keep_going:
+                raise
+            log.error("batched threading DP failed (%s: %s); retrying "
+                      "per chain", type(exc).__name__, exc)
+            paths = []
+            for dp, dcfg in zip(dps, dp_cfgs):
+                try:
+                    paths.append(thread_chain_device(
+                        dp, dcfg, device=device, devices=devices))
+                except Exception as exc2:
+                    log.error("per-chain threading failed: %s", exc2)
+                    paths.append(None)
+    dp_seconds = s_dp.wall
     art.stage_seconds["dp_device_window"] = dp_seconds
     # the run's DP inputs and paths, for re-threading checks
     art.threading = {"dps": dps, "configs": dp_cfgs, "paths": paths}
-    sub = substage.drain()
-    if sub:
-        art.stage_seconds["substages"] = sub
 
     results: List[ChainPhasingResult] = []
     # with several ranks each writes its chain files and rank 0 merges the
     # aggregate below
     agg = (open(f"{outstem}-result.txt", "w") if nproc == 1
            else contextlib.nullcontext(None))
-    with agg as full_output:
+    with substage.span("emit"), agg as full_output:
         for kind, res, payload in records:
             if full_output is not None:
                 full_output.write(f"chain id: {res.chain_id}\n")
@@ -798,8 +813,6 @@ def phase_all_chains_batched(art, outstem: str, config: PhasingConfig,
                 S = max_states(ccfg.ploidy)
                 res.dp_cells = max(res.num_positions - 1, 0) \
                     * _dp_frontier_width(ccfg, S) * S
-                res.stage_seconds["threading"] = \
-                    dp_seconds / max(len(dps), 1)
                 res.seconds += (time.perf_counter() - t1
                                 + dp_seconds / max(len(dps), 1))
             results.append(res)

@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -36,6 +35,7 @@ from ahsoka_tpu_torch.graph.structures import BubbleIndex
 from ahsoka_tpu_torch.io.gaf import (AlignmentTable, identities_sidefile_path,
                                      read_gaf)
 from ahsoka_tpu_torch.io.gfa import GfaGraph, parse_gfa
+from ahsoka_tpu_torch.utils import substage
 from ahsoka_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -64,18 +64,17 @@ class PipelineArtifacts:
 def load_graph_and_bubbles(gfa_path: str, config: PhasingConfig,
                            artifacts: Optional[PipelineArtifacts] = None
                            ) -> PipelineArtifacts:
-    t0 = time.perf_counter()
-    graph = parse_gfa(gfa_path)
-    t1 = time.perf_counter()
+    with substage.span("parse_gfa") as s_gfa:
+        graph = parse_gfa(gfa_path)
     log.info("Step 1: Graph with %d nodes read", graph.num_nodes())
-    index = find_bubbles(graph,
-                         compat_std_ordering=config.compat_std_ordering)
-    t2 = time.perf_counter()
+    with substage.span("find_bubbles") as s_bub:
+        index = find_bubbles(graph,
+                             compat_std_ordering=config.compat_std_ordering)
     log.info("Step 2: Bubbles read; number of bubble chains: %d",
              len(index.chains))
     art = PipelineArtifacts(graph=graph, index=index)
-    art.stage_seconds["parse_gfa"] = t1 - t0
-    art.stage_seconds["find_bubbles"] = t2 - t1
+    art.stage_seconds["parse_gfa"] = s_gfa.wall
+    art.stage_seconds["find_bubbles"] = s_bub.wall
     return art
 
 
@@ -122,9 +121,39 @@ def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
     art = load_graph_and_bubbles(gfa_path, config)
     secondary = _secondary_process(config)
     if not secondary:
-        write_bubbleinfo_file(art.index, outstem)
+        with substage.span("write_bubbleinfo"):
+            write_bubbleinfo_file(art.index, outstem)
+    with substage.span("parse_gaf") as s_gaf:
+        _read_alignments(art, gaf_path, config, columnar, secondary)
+    n_buckets = (sum(len(b.record_idx)
+                     for b in art.chain_buckets.values())
+                 if art.chain_buckets is not None else
+                 sum(len(v) for v in art.alignments.by_chain.values()))
+    log.info("Step 3: Alignments read; number of alignment buckets: %d",
+             n_buckets)
 
-    t0 = time.perf_counter()
+    with substage.span("allele_paths") as s_paths:
+        art.allele_paths = enumerate_allele_paths(art.graph, art.index)
+    log.info("Step 4: Chain paths computed; number of chain paths: %d",
+             len(art.allele_paths))
+
+    # process largest chains first; ties broken by larger chain id — the
+    # deterministic order produced by sorting (size, chain_id) pairs
+    # descending (src/polyassembly.cpp:136-140)
+    art.size_sorting = sorted(
+        ((len(bubbles), chain_id)
+         for chain_id, bubbles in art.allele_paths.items()),
+        reverse=True)
+    art.stage_seconds["parse_gaf"] = s_gaf.wall
+    art.stage_seconds["allele_paths"] = s_paths.wall
+    return art
+
+
+def _read_alignments(art: PipelineArtifacts, gaf_path: str,
+                     config: PhasingConfig, columnar: bool,
+                     secondary: bool) -> None:
+    """Parse and bucket the GAF into ``art`` and write the identities
+    side file (rank 0 only)."""
     if columnar:
         from ahsoka_tpu_torch.io._native_io import parse_gaf_native
         from ahsoka_tpu_torch.io.columns import (bucket_by_chain,
@@ -141,41 +170,17 @@ def prepare_phase_inputs(gfa_path: str, gaf_path: str, outstem: str,
             art.alignments = AlignmentTable(num_records=cols.num_records)
             # identities side file from the same raw native arrays
             if not secondary:
-                _write_identities_from_native(gaf_path, raw=raw)
-        else:
-            log.warning("native GAF parser unavailable; falling back to "
-                        "the object parser")
-            columnar = False
-    if not columnar:
-        with open(identities_sidefile_path(gaf_path) if not secondary
-                  else os.devnull, "w") as idf:
-            art.alignments = read_gaf(
-                gaf_path, art.index, identities_out=idf,
-                compat_duplicate_bucketing=
-                config.compat_duplicate_bucketing)
-    t1 = time.perf_counter()
-    n_buckets = (sum(len(b.record_idx)
-                     for b in art.chain_buckets.values())
-                 if art.chain_buckets is not None else
-                 sum(len(v) for v in art.alignments.by_chain.values()))
-    log.info("Step 3: Alignments read; number of alignment buckets: %d",
-             n_buckets)
-
-    art.allele_paths = enumerate_allele_paths(art.graph, art.index)
-    t2 = time.perf_counter()
-    log.info("Step 4: Chain paths computed; number of chain paths: %d",
-             len(art.allele_paths))
-
-    # process largest chains first; ties broken by larger chain id — the
-    # deterministic order produced by sorting (size, chain_id) pairs
-    # descending (src/polyassembly.cpp:136-140)
-    art.size_sorting = sorted(
-        ((len(bubbles), chain_id)
-         for chain_id, bubbles in art.allele_paths.items()),
-        reverse=True)
-    art.stage_seconds["parse_gaf"] = t1 - t0
-    art.stage_seconds["allele_paths"] = t2 - t1
-    return art
+                with substage.span("write_identities"):
+                    _write_identities_from_native(gaf_path, raw=raw)
+            return
+        log.warning("native GAF parser unavailable; falling back to "
+                    "the object parser")
+    # the object parser writes the identities side file as it reads
+    with open(identities_sidefile_path(gaf_path) if not secondary
+              else os.devnull, "w") as idf:
+        art.alignments = read_gaf(
+            gaf_path, art.index, identities_out=idf,
+            compat_duplicate_bucketing=config.compat_duplicate_bucketing)
 
 
 def _write_identities_from_native(gaf_path: str, raw=None) -> None:
@@ -239,12 +244,14 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
     ``config.backend="host"`` or ``config.batch_dp=False`` phase chain by
     chain (``phase.phase_all_chains``); the host backend reads the GAF
     into alignment objects (``columnar`` defaults to False for it).
-    ``profile_dir`` writes a torch.profiler trace of the phasing stage
-    (Chrome trace JSON)."""
+
+    The job runs as one job of the span recorder (``utils/substage.py``),
+    whose spans and counters go into ``-metrics.json``.  ``profile_dir``
+    writes a torch.profiler trace of the job (Chrome trace JSON,
+    ``trace.json``), the pool workers' spans appended on their own
+    thread rows."""
+    from ahsoka_tpu_torch.phase import check_layout
     from ahsoka_tpu_torch.utils.malloc_tune import retain_freed_heap
-    from ahsoka_tpu_torch.phase import (check_layout, device_warmup,
-                                        phase_all_chains,
-                                        phase_all_chains_batched)
 
     # the device resolves first on either backend: a bare run without a
     # card raises, although the host backend then touches no device
@@ -263,13 +270,6 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
     if columnar is None:
         # the host readsets are built from alignment objects
         columnar = backend == "jax" and not config.debug_readset_files
-    art = prepare_phase_inputs(gfa_path, gaf_path, outstem, config,
-                               columnar=columnar)
-    if backend == "jax":
-        # the context and first round trip, outside the phase timer, on
-        # either device-backend driver
-        device_warmup(art.stage_seconds, dev)
-    t0 = time.perf_counter()
     prof = None
     if profile_dir:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -278,6 +278,32 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
     try:
+        with substage.job():
+            return _phase_job(gfa_path, gaf_path, outstem, config, dev,
+                              devs, resume, keep_going, columnar)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            substage.export_worker_events(
+                path, substage.snapshot().get("span_events", []))
+
+
+def _phase_job(gfa_path, gaf_path, outstem, config, dev, devs, resume,
+               keep_going, columnar) -> PipelineArtifacts:
+    from ahsoka_tpu_torch.phase import (device_warmup, phase_all_chains,
+                                        phase_all_chains_batched)
+
+    backend = config.backend
+    art = prepare_phase_inputs(gfa_path, gaf_path, outstem, config,
+                               columnar=columnar)
+    if backend == "jax":
+        # the context and first round trip, outside the phase timer, on
+        # either device-backend driver
+        device_warmup(art.stage_seconds, dev)
+    with substage.span("phase", nest=False) as s_phase:
         if backend == "jax" and config.batch_dp:
             results = phase_all_chains_batched(art, outstem, config,
                                                resume=resume,
@@ -288,15 +314,13 @@ def run_phase(gfa_path: str, gaf_path: str, outstem: str,
                                        backend=backend, resume=resume,
                                        keep_going=keep_going, device=dev,
                                        devices=devs)
-    finally:
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(profile_dir,
-                                                  "trace.json"))
-    art.stage_seconds["phase"] = time.perf_counter() - t0
+    art.stage_seconds["phase"] = s_phase.wall
+    sub = substage.substages()
+    if sub:
+        art.stage_seconds["substages"] = sub
     log.info("Step 5: Phasing processed")
-    _write_metrics(outstem, art, results, config, dev)
+    with substage.span("write_metrics"):
+        _write_metrics(outstem, art, results, config, dev)
     return art
 
 
@@ -304,9 +328,11 @@ def _write_metrics(outstem: str, art: PipelineArtifacts, results,
                    config: PhasingConfig, dev: torch.device) -> None:
     """``-metrics.json`` in the JAX package's schema (metrics_version 3),
     plus the device it ran on: the card's name, or ``cpu`` for the CPU and
-    for the host backend.  ``stage_seconds`` holds ``device_warmup`` and
-    ``device_rtt_est`` on the device backend, taken before the phase
-    timer, so the rates exclude them."""
+    for the host backend.  ``stage_seconds`` holds ``device_warmup`` on
+    the device backend, taken before the phase timer, so the rates
+    exclude it, and ``substages``.  ``job``,
+    ``spans``, ``counters`` and, under a profiler, ``span_events`` are the
+    recorder's ``snapshot()``, taken as the file is written."""
     host = config.backend == "host"
     phase_s = art.stage_seconds.get("phase", 0.0) or 1e-9
     e2e_s = phase_s + art.stage_seconds.get("parse_gaf", 0.0)
@@ -344,6 +370,7 @@ def _write_metrics(outstem: str, art: PipelineArtifacts, results,
              "resumed": r.resumed}
             for r in results],
     }
+    metrics.update(substage.snapshot())
     path = f"{outstem}-metrics.json"
     if _secondary_process(config):
         # chain-sharded multi-process: each rank reports its own share;

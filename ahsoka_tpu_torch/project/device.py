@@ -625,6 +625,9 @@ def _compact(keys: torch.Tensor, extents, row_offset: int = 0):
         idx = torch.nonzero(mask).cpu().numpy()               # [nnz, 4]
         vals = keys[mask].cpu().numpy()
         substage.add("projection.fetch_calls", 1.0)
+        # the two selections' counts and the two copies
+        substage.count("device.round_trips", 4)
+        substage.count("device.fetch_bytes", idx.nbytes + vals.nbytes)
     ct = idx[:, 0] * 3 + idx[:, 1]
     bounds = np.searchsorted(ct, np.arange(3 * C + 1))
     out = []

@@ -105,8 +105,12 @@ def _group_edges(alleles_dev, r0s, c0s, R: int, block: int, score):
     upper = offs[:, None] < offs[None, :]
     mask &= upper | (r0 != c0)[:, None, None]
     g, i, j = torch.nonzero(mask, as_tuple=True)
-    return ((r0[g] + i).cpu().numpy(), (c0[g] + j).cpu().numpy(),
-            stack[g, i, j].cpu().numpy())
+    out = ((r0[g] + i).cpu().numpy(), (c0[g] + j).cpu().numpy(),
+           stack[g, i, j].cpu().numpy())
+    # the selection's count and the three copies
+    substage.count("device.round_trips", 4)
+    substage.count("device.fetch_bytes", sum(a.nbytes for a in out))
+    return out
 
 
 def score_pairs_banded(matrix: AlleleMatrix, config: PhasingConfig,
@@ -161,6 +165,8 @@ def score_pairs_banded(matrix: AlleleMatrix, config: PhasingConfig,
         alleles_dev[r_t.long(), p_t.long()] = v_t
         a1, a2 = (torch.as_tensor(np.asarray(x, dtype=np.float32),
                                   device=dev) for x in stats)
+        substage.count("device.upload_bytes",
+                       4 * sum(np.size(x) for x in stats))
 
     # the band's block pairs: the columns that can overlap a row block
     # are those whose first position is <= the block's last one

@@ -242,7 +242,10 @@ def score_pairs_device(matrix: AlleleMatrix, config: PhasingConfig,
                                   ploidy=config.ploidy,
                                   min_overlap=config.min_overlap,
                                   mode=config.score_mode)
-        return out[:R, :R].cpu().numpy().astype(np.float64)
+        host = out[:R, :R].cpu().numpy()
+        substage.count("device.round_trips")
+        substage.count("device.fetch_bytes", host.nbytes)
+        return host.astype(np.float64)
     return _score_batch([padded], [scalar],
                         None if mult is None else [mult], [R],
                         max(matrix.num_alleles, 2), config, dev)[0]
@@ -265,6 +268,8 @@ def _score_batch(padded, scalars, mults, rows, num_alleles: int,
                         min_overlap=config.min_overlap, mult=mult_t)
     R_max = max(rows)
     host = out[:, :R_max, :R_max].cpu().numpy()
+    substage.count("device.round_trips")
+    substage.count("device.fetch_bytes", host.nbytes)
     return [host[j, :R, :R].astype(np.float64) for j, R in enumerate(rows)]
 
 

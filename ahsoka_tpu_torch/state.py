@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ahsoka_tpu_torch.utils import substage
+
 _KEEP = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
@@ -47,11 +49,13 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def to_torch(*arrays, device) -> Tuple[torch.Tensor, ...]:
     """Each numpy array (or scalar) -> a contiguous tensor on ``device``
-    with the dtype policy above.  Returns a tuple, one tensor per input."""
+    with the dtype policy above.  Returns a tuple, one tensor per input;
+    their bytes count under ``device.upload_bytes``."""
     out = []
     for a in arrays:
         a = np.asarray(a)
         dt = _torch_dtype(a.dtype)
         t = torch.from_numpy(np.ascontiguousarray(a))
         out.append(t.to(device=device, dtype=dt, non_blocking=False))
+        substage.count("device.upload_bytes", out[-1].nbytes)
     return tuple(out)

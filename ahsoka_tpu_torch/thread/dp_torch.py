@@ -189,8 +189,11 @@ def thread_chains_batched(dps: List[DPInputs], config: PhasingConfig,
                                                num_alleles=A)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+                substage.count("device.round_trips")
         with substage.timed("threading.fetch"):
             states = states.cpu().numpy()
+            substage.count("device.round_trips")
+            substage.count("device.fetch_bytes", states.nbytes)
         with substage.timed("threading.expand"):
             for row, idx in enumerate(members):
                 dp = dps[idx]

@@ -56,8 +56,7 @@ JAX package (``ahsoka_tpu``):
    every chain file byte-equal to the batched run's, one forward and one
    backtrace launch a phased chain (counted), paths identical to the
    batched run's and to a plain CPU re-threading; each run's phase wall,
-   DP window, ``device_warmup`` and ``device_rtt_est`` beside the batched
-   run's, and the largest |d| between one-chain and batched dense scores
+   DP window and ``device_warmup`` beside the batched run's, and the largest |d| between one-chain and batched dense scores
    on the card;
 5b. ``host``: the host backend (the numpy oracle) on both goldens,
    byte-equal to ``tests/data``; mixed with ``max_coverage=None`` and no
@@ -649,7 +648,6 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
     from ahsoka_tpu_torch.device import synchronize
     from ahsoka_tpu_torch.pipeline import run_phase
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
-    from ahsoka_tpu_torch.utils import substage
     from ahsoka_tpu_torch.utils.accuracy import score_phased_output
     from ahsoka_tpu_torch.utils.synth import write_synthetic
 
@@ -674,7 +672,6 @@ def phase_e2e(dev, name: str, spec, cfg, kernels, max_switch_err,
         cfg = dataclasses.replace(cfg, ploidy_map=pmap)
     outstem = os.path.join(work, "run")
 
-    substage.drain()          # marks of an earlier run's CPU re-threading
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_path_counts()
     t0 = time.perf_counter()
@@ -1044,9 +1041,7 @@ def perchain_run(dev, name: str, r: dict) -> dict:
            "dp_device_window_s": stages.get("dp_device_window"),
            "batched_dp_device_window_s": base.get("dp_device_window"),
            "device_warmup_s": stages.get("device_warmup"),
-           "device_rtt_est_s": stages.get("device_rtt_est"),
            "batched_device_warmup_s": base.get("device_warmup"),
-           "batched_device_rtt_est_s": base.get("device_rtt_est"),
            "dp_kernel_device_ms": s["dp_kernel_device_ms"],
            "peak_device_bytes": s["peak_device_bytes"],
            "batched_peak_device_bytes": r["peak_device_bytes"],
@@ -1660,7 +1655,6 @@ def phase_sharded_mesh(dev, c3) -> dict:
     from ahsoka_tpu_torch.pipeline import run_phase
     from ahsoka_tpu_torch.score import device as score_device
     from ahsoka_tpu_torch.thread.dp_torch import thread_chains_batched
-    from ahsoka_tpu_torch.utils import substage
 
     work, cfg = c3["work"], c3["config"]
     gfa, gaf = (os.path.join(work, f"config3c.{x}") for x in ("gfa", "gaf"))
@@ -1690,7 +1684,6 @@ def phase_sharded_mesh(dev, c3) -> dict:
         score_device.score_pairs_device = score_spy
         for n in calls:
             setattr(dist, n, counted(n))
-        substage.drain()
         _reset_path_counts()
         t0 = time.perf_counter()
         art = run_phase(gfa, gaf, stem, sharded, device=dev,

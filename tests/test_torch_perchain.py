@@ -241,8 +241,8 @@ def test_resume_and_keep_going(tmp_path, monkeypatch, backend, batch_dp):
 
 @pytest.mark.parametrize("batch_dp", [True, False])
 def test_metrics_device_warmup(tmp_path, monkeypatch, batch_dp):
-    """The device backend records the warmup and the round-trip estimate
-    outside the phase timer, on both drivers."""
+    """The device backend records the warmup outside the phase timer, on
+    both drivers: one round trip, counted, and no probe beside it."""
     from ahsoka_tpu_torch import phase as phase_mod
 
     order = []
@@ -267,15 +267,25 @@ def test_metrics_device_warmup(tmp_path, monkeypatch, batch_dp):
         m = json.load(fh)
     stages = m["stage_seconds"]
     assert m["rate_excludes_device_warmup"] is True
-    assert 0 <= stages["device_rtt_est"] <= stages["device_warmup"]
+    assert "device_rtt_est" not in stages
+    assert stages["device_warmup"] == m["spans"]["device_warmup"]["wall_s"]
+    assert m["spans"]["device_warmup"]["calls"] == 1
+    # inside the job, before and apart from the phase timer
+    assert 0 < stages["device_warmup"]
+    assert stages["device_warmup"] + stages["phase"] \
+        <= m["spans"]["job"]["wall_s"]
 
 
 def test_device_warmup_records_and_raises(monkeypatch):
     from ahsoka_tpu_torch.phase import device_warmup
+    from ahsoka_tpu_torch.utils import substage
 
     marks = {}
-    device_warmup(marks, torch.device("cpu"))
-    assert set(marks) == {"device_warmup", "device_rtt_est"}
+    with substage.job():
+        device_warmup(marks, torch.device("cpu"))
+        counters = substage.snapshot()["counters"]
+    assert set(marks) == {"device_warmup"}
+    assert counters == {"device.round_trips": 1}
 
     def no_card(*a, **k):
         raise RuntimeError("no card")
