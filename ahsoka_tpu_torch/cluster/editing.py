@@ -42,6 +42,7 @@ decision-trace parity-tested against this oracle.
 
 from __future__ import annotations
 
+import itertools
 from typing import List
 
 import numpy as np
@@ -247,8 +248,12 @@ def _host_cluster_editing(weights: np.ndarray, mode: str
 
 def assignment_from_clusters(clusters: List[List[int]],
                              num_reads: int) -> np.ndarray:
+    """Per read its cluster id, -1 for a read in no cluster (a read in
+    several takes the last)."""
     out = np.full(num_reads, -1, dtype=np.int32)
-    for cid, cluster in enumerate(clusters):
-        for r in cluster:
-            out[r] = cid
+    sizes = [len(c) for c in clusters]
+    reads = np.fromiter(itertools.chain.from_iterable(clusters),
+                        dtype=np.int64, count=sum(sizes))
+    np.maximum.at(out, reads, np.repeat(
+        np.arange(len(clusters), dtype=np.int32), sizes))
     return out

@@ -116,7 +116,7 @@ def build_dp_inputs_from_matrix(alleles: np.ndarray, positions: np.ndarray,
     # handful of positions, so this is O(nnz) — the [P, R] @ [R, K]
     # integer matmul it replaces cannot use BLAS and ran for HOURS at
     # 50k reads x 10k positions x 2.5k clusters (config-2 scale)
-    r_nz, p_nz = np.nonzero(alleles >= 0)
+    r_nz, p_nz = np.divmod(np.flatnonzero(alleles >= 0), max(P, 1))
     k_nz = cluster_of[r_nz].astype(np.int64)
     a_nz = alleles[r_nz, p_nz].astype(np.int64)
     pk = p_nz.astype(np.int64) * K + k_nz
@@ -132,41 +132,40 @@ def _dp_inputs_from_counts(positions: np.ndarray, cov_counts: np.ndarray,
                            config: PhasingConfig) -> DPInputs:
     P, K = cov_counts.shape
     A = allele_counts.shape[2]
-    totals = np.maximum(cov_counts.sum(axis=1, keepdims=True), 1)
-    rel_cov = cov_counts / totals
+    totals = np.maximum(cov_counts.sum(axis=1), 1)
 
     ploidy = config.ploidy
     M = 2 * ploidy
     cutoff = 1.0 / (config.coverage_cutoff_denom * ploidy)
 
     candidates = np.full((P, M), -1, dtype=np.int32)
-    num_candidates = np.zeros(P, dtype=np.int32)
     coverage = np.zeros((P, M), dtype=np.float32)
     consensus = np.zeros((P, M), dtype=np.int32)
 
-    for j in range(P):
-        covering = np.nonzero(cov_counts[j] > 0)[0]
-        # sort by coverage desc; stable tie-break keeps ascending cluster id
-        order = covering[np.argsort(-rel_cov[j, covering], kind="stable")]
-        cut = min(len(order), M)
-        for i in range(ploidy, min(len(order), M)):
-            if rel_cov[j, order[i]] < cutoff:
-                cut = i
-                break
-        chosen = order[:cut]
-        num_candidates[j] = len(chosen)
-        for slot, cid in enumerate(chosen):
-            candidates[j, slot] = cid
-            coverage[j, slot] = rel_cov[j, cid]
-            counts = allele_counts[j, cid]
-            if counts.sum() > 0:
-                # majority allele; ties -> smallest allele id (the
-                # reference's ascending-count scan with strict >)
-                consensus[j, slot] = int(np.argmax(counts))
-            else:
-                consensus[j, slot] = 0
+    # the covered (position, cluster) pairs, row-major, then stably by
+    # position and descending count: within a position relative coverage
+    # is count / total, so that is coverage descending with ties in
+    # ascending cluster id
+    pos, cid = np.divmod(np.flatnonzero(cov_counts > 0), max(K, 1))
+    cnt = cov_counts[pos, cid]
+    top = int(cnt.max(initial=0))
+    order = np.argsort(pos * (top + 1) + (top - cnt), kind="stable")
+    pos, cid, cnt = pos[order], cid[order], cnt[order]
+    rc = cnt / totals[pos]                      # rel. coverage, float64
+    slot = np.arange(len(pos)) - np.searchsorted(pos, pos)
+    # keep ploidy..2*ploidy slots; past `ploidy` the descending order is
+    # cut at the first relative coverage below the cutoff
+    keep = (slot < M) & ((slot < ploidy) | (rc >= cutoff))
+    pos, cid, rc, slot = pos[keep], cid[keep], rc[keep], slot[keep]
+    num_candidates = np.bincount(pos, minlength=P).astype(np.int32)
+    candidates[pos, slot] = cid
+    coverage[pos, slot] = rc
+    # majority allele; ties -> smallest allele id (the reference's
+    # ascending-count scan with strict >); no allele counted -> 0
+    consensus[pos, slot] = np.argmax(allele_counts[pos, cid], axis=1)
     if getattr(config, "genotype_prior", "reference") == "balanced":
-        genotypes = balanced_genotypes(allele_counts.sum(axis=1), ploidy)
+        genotypes = balanced_genotypes(
+            np.einsum("pka->pa", allele_counts), ploidy)
     else:
         genotypes = default_genotypes(P, ploidy, A)
     return DPInputs(positions=np.asarray(positions, dtype=np.int32),

@@ -129,6 +129,7 @@ def score_pairs_banded(matrix: AlleleMatrix, config: PhasingConfig,
     alleles = matrix.alleles
     R, P = alleles.shape
     whatshap = config.score_mode == "whatshap"
+    substage.count("scoring.p_s_host")
     with substage.timed("scoring.host_stats"):
         if whatshap:
             from ahsoka_tpu_torch.score.whatshap import chain_p_s, position_pd
