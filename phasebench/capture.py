@@ -3,9 +3,10 @@
 The program writes its result files and returns its chains' allele
 paths and DP inputs and paths (``PipelineArtifacts``), but not the
 stages between: the capped allele matrix, the collapse, the pair scores
-and the clusters.  ``Capture.install`` wraps the program's stage
-functions by name so that, in the jobs it is told to record, each
-chain's stage outputs are kept by reference (no copy, no device sync).
+(a banded chain's band edges) and the clusters.  ``Capture.install``
+wraps the program's stage functions by name so that, in the jobs it is
+told to record, each chain's stage outputs are kept by reference (no
+copy, no device sync).
 The wrappers stay in place in every job of a run, recorded or not, so
 every job takes the same path.  A stage function that is no longer
 there raises at set-up: the benchmark then cannot judge the run.
@@ -18,17 +19,18 @@ the job's other stages also open a profiler range named
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Dict, Optional
 
 
 class ChainRecord:
     __slots__ = ("matrix", "collapse", "scores", "weights", "clusters",
-                 "dp", "banded")
+                 "dp", "banded", "edges")
 
     def __init__(self):
         self.matrix = self.collapse = self.scores = self.weights = None
-        self.clusters = self.dp = None
+        self.clusters = self.dp = self.edges = None
         self.banded = False
 
 
@@ -66,12 +68,16 @@ class Capture:
             raise RuntimeError(f"{module.__name__}.{name} is gone: the "
                                "benchmark cannot record this stage")
         orig = getattr(module, name)
-        setattr(module, name, make(orig))
+        # the wrapper carries the original's attributes (a CUDA launch
+        # counter such as ``score_pairs_banded.launches``, which the
+        # program increments through the module's name)
+        setattr(module, name, functools.update_wrapper(make(orig), orig))
         self._undo.append((module, name, orig))
 
     def install(self) -> None:
         from ahsoka_tpu_torch import phase, pipeline
         from ahsoka_tpu_torch.cluster import _native_ce
+        from ahsoka_tpu_torch.score import banded as score_banded
         from ahsoka_tpu_torch.score import device as score_device
         from ahsoka_tpu_torch.thread import dp_torch
 
@@ -149,13 +155,23 @@ class Capture:
                 return out
             return wrapped
 
-        def sparse_solver(orig):
+        def band_scorer(orig):
             def wrapped(*a, **kw):
+                out = orig(*a, **kw)
                 rec = cap._current() if cap.recording else None
                 if rec is not None:
-                    rec.banded = True
+                    rec.banded, rec.edges = True, out
+                return out
+            return wrapped
+
+        def sparse_solver(orig):
+            def wrapped(*a, **kw):
                 with cap._range("cluster_editing_sparse"):
-                    return orig(*a, **kw)
+                    out = orig(*a, **kw)
+                rec = cap._current() if cap.recording else None
+                if rec is not None:
+                    rec.banded, rec.clusters = True, out
+                return out
             return wrapped
 
         self._patch(phase, "_chain_matrix_stage", matrix_stage)
@@ -164,6 +180,7 @@ class Capture:
         self._patch(phase, "cluster_editing", solver)
         self._patch(score_device, "score_pairs_device", scorer)
         self._patch(_native_ce, "cluster_editing_sparse", sparse_solver)
+        self._patch(score_banded, "score_pairs_banded", band_scorer)
         self._patch(pipeline, "prepare_phase_inputs", ranged("parse"))
         self._patch(score_device, "score_pairs_device_many",
                     ranged("score_many"))

@@ -68,10 +68,13 @@ def witness_flips(job, cid, rcfg, seed, device) -> dict:
     from phasebench.reference import phase as R
     from phasebench.reference.editing import cluster_editing
 
-    m = R.chain_matrix(job, cid, rcfg)
+    ccfg = R.chain_config(rcfg, cid)
+    m = R.chain_matrix(job, cid, ccfg)
     if m is None:
         return {}
-    cm = R.chain_collapse(m, rcfg)
+    cm = R.chain_collapse(m, ccfg)
+    if R.is_banded(m, cm, ccfg):
+        return {}
     s64 = R.chain_scores(m, cm, rcfg)
 
     def solve(scores):
@@ -116,7 +119,7 @@ def main(argv=None) -> int:
 
     from phasebench import judge
     from phasebench.capture import Capture
-    from phasebench.jobs import make_pool
+    from phasebench.jobs import make_pool, ploidy_map_path, read_ploidy_map
     from phasebench.reference import phase as R
     from phasebench.reference.config import PhasingConfig as RefConfig
     from phasebench.reference.editing import cluster_editing
@@ -129,7 +132,7 @@ def main(argv=None) -> int:
     cell = load_cell(args.workload)
     threads = min(os.cpu_count() or 1, 8)
     settings = dict(cell["config"]["settings"], threads=threads)
-    cfg, rcfg = PhasingConfig(**settings), RefConfig(**settings)
+    planted = cell["config"].get("ploidy_map") == "planted"
     summary: dict = {}
     capture = Capture()
     capture.install()
@@ -155,14 +158,23 @@ def main(argv=None) -> int:
         try:
             use = wcell if kind == "witness" else cell
             idx = sampled_jobs(use, seed)
-            paths = make_pool(cell["shape"], seed, idx, work, threads)
+            paths = make_pool(cell["shape"], seed, idx, work, threads,
+                              planted=settings if planted else None)
             numbers: dict = {}
             own = 0
             ref_dev = dev if dev.type == "cuda" else None
+            def configs(gfa):
+                # the job's own ploidy map, where the cell plants one
+                pm = read_ploidy_map(ploidy_map_path(gfa)) if planted \
+                    else None
+                return (PhasingConfig(**dict(settings, ploidy_map=pm)),
+                        RefConfig(**dict(settings, ploidy_map=pm)))
+
             if kind == "witness":
                 flips = {"chains": 0, "rounded32": 0, "ulp": 0,
                          "gemm32": 0}
                 for i, (gfa, gaf) in zip(idx, paths):
+                    _cfg, rcfg = configs(gfa)
                     job = R.load_job(gfa, gaf, rcfg)
                     for cid in judge.sample_chains(
                             job.size_sorting, seed + i,
@@ -177,6 +189,7 @@ def main(argv=None) -> int:
                     s[k] = s.get(k, 0) + v
                 continue
             for i, (gfa, gaf) in zip(idx, paths):
+                cfg, rcfg = configs(gfa)
                 job = R.load_job(gfa, gaf, rcfg)
                 ids = judge.sample_chains(job.size_sorting, seed + i,
                                           cell["check"]["chains"])
@@ -199,8 +212,11 @@ def main(argv=None) -> int:
                     if kind == "program":
                         for cid in ids:
                             out = produced.chains[cid]
-                            m = R.chain_matrix(job, cid, rcfg)
-                            cm = R.chain_collapse(m, rcfg)
+                            if out.banded:
+                                continue
+                            ccfg = R.chain_config(rcfg, cid)
+                            m = R.chain_matrix(job, cid, ccfg)
+                            cm = R.chain_collapse(m, ccfg)
                             w = R.solver_weights(
                                 R.chain_scores(m, cm, rcfg), cm)
                             own += int(cluster_editing(

@@ -64,6 +64,21 @@ def load_job(gfa_path: str, gaf_path: Optional[str],
                bubbleinfo=bubbleinfo_text(index))
 
 
+def chain_config(config: PhasingConfig, chain_id: int) -> PhasingConfig:
+    """The effective config of one chain: ``config.ploidy_map``'s ploidy
+    for the chain, else the global one (the program's rule,
+    ``ahsoka_tpu_torch/phase.py`` ``chain_config``).  The batched driver
+    runs a chain's matrix, collapse, banded scoring, DP inputs, DP and
+    emission at it, and its dense scoring at the global ``config``."""
+    pm = config.ploidy_map
+    if not pm:
+        return config
+    k = int(pm.get(chain_id, config.ploidy))
+    if k == config.ploidy:
+        return config
+    return dataclasses.replace(config, ploidy=k, ploidy_map=None)
+
+
 def chain_matrix(job: Job, chain_id: int, config: PhasingConfig
                  ) -> Optional[AlleleMatrix]:
     """The chain's allele matrix after the coverage cap, or None when no
@@ -117,6 +132,16 @@ def solver_weights(scores: np.ndarray,
     w = scores * np.outer(collapse.mult, collapse.mult)
     np.fill_diagonal(w, 0.0)
     return w
+
+
+def is_banded(matrix: AlleleMatrix, collapse: Optional[CollapsedReads],
+              config: PhasingConfig) -> bool:
+    """Whether the program scores the chain's band (and solves it with
+    its sparse solver): more effective rows, the collapse's groups or
+    else the reads, than ``banded_scoring_threshold``."""
+    rows = collapse.num_groups if collapse is not None \
+        else matrix.num_reads
+    return rows > config.banded_scoring_threshold
 
 
 def dp_inputs(matrix: AlleleMatrix, clusters: Sequence[Sequence[int]],
@@ -194,10 +219,15 @@ def best_path(dp: DPInputs, config: PhasingConfig, costs: DPCosts
         state = int(backptr[j][state])
         states.append(state)
     states.reverse()
-    tuples = state_tuples(2 * config.ploidy, config.ploidy)
-    path = [tuple(int(dp.candidates[j, slot]) for slot in tuples[s])
+    return states_path(dp, states, config.ploidy), path_cost(costs, states)
+
+
+def states_path(dp: DPInputs, states: Sequence[int], ploidy: int
+                ) -> List[Tuple[int, ...]]:
+    """The path of cluster-id tuples of one DP state a position."""
+    tuples = state_tuples(2 * ploidy, ploidy)
+    return [tuple(int(dp.candidates[j, slot]) for slot in tuples[s])
             for j, s in enumerate(states)]
-    return path, path_cost(costs, states)
 
 
 def result_lines(job: Job, chain_id: int, dp: DPInputs,

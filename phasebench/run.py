@@ -26,9 +26,10 @@ The last line of standard output is one JSON object: ``correct``,
 end-to-end metrics the workload file lists under ``end_to_end``;
 ``--trace 1``: the per-layer metrics that move one of those and name the
 cell, where they name any, read from a profiler trace of the window),
-``device``, ``breakdown`` (traced runs) and ``checks`` (each number
-compared with its limit).  A run exits 2, printing no result, without a
-card.
+``device``, ``breakdown`` (traced runs), ``unchecked`` (the chains a
+stage of which no plain reference checks yet: not a fault) and
+``checks`` (each number compared with its limit).  A run exits 2,
+printing no result, without a card.
 """
 
 from __future__ import annotations
@@ -86,14 +87,38 @@ def _load_json(*parts) -> dict:
 def load_cell(name: str) -> dict:
     """The cell's workload file with its configuration under ``config``
     and the job shape (the configuration's, with the traffic's ``job``
-    keys over it) under ``shape``."""
+    keys over it) under ``shape``.  A configuration's ``plan`` goes into
+    the shape whole, and a ``job`` key that names a plan key
+    (``jobs.PLAN_KEYS``) overrides it there.  A workload's
+    ``warmup_job`` keys override ``shape`` in the same way for the
+    warm-up job alone (``warmup_shape``): a plan drawn from the seed
+    varies its warm-up's work, a fixed ``chains`` list does not."""
     cell = _load_json("workloads", f"{name}.json")
-    config = _load_json("configs", f"{cell['config']}.json")
-    shape = {k: config[k] for k in ("num_chains", "bubbles_per_chain",
-                                    "reads_per_hap", "ploidy", "span",
-                                    "identity", "error_rate")}
-    shape.update(cell.get("job", {}))
-    return dict(cell, config=config, shape=shape)
+    return make_cell(cell, _load_json("configs", f"{cell['config']}.json"))
+
+
+def make_cell(cell: dict, config: dict) -> dict:
+    """``load_cell`` of a workload and a configuration already read."""
+    from phasebench.jobs import PLAN_KEYS, SHAPE_KEYS
+
+    def over(shape, keys):
+        shape = dict(shape)
+        if "plan" in shape:
+            shape["plan"] = dict(shape["plan"])
+        for k, v in keys.items():
+            if "plan" in shape and k in PLAN_KEYS:
+                shape["plan"][k] = v
+            else:
+                shape[k] = v
+        return shape
+    shape = {k: config[k] for k in SHAPE_KEYS if k in config}
+    if "plan" in config:
+        shape["plan"] = config["plan"]
+    shape = over(shape, cell.get("job", {}))
+    out = dict(cell, config=config, shape=shape)
+    if "warmup_job" in cell:
+        out["warmup_shape"] = over(shape, cell["warmup_job"])
+    return out
 
 
 def end_to_end(cell: dict) -> List[str]:
@@ -189,7 +214,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
              started: Optional[float] = None) -> dict:
     """Set up, run the window, judge; returns the result line's object.
     ``device`` other than cuda is for the CPU tests: such a run's
-    metrics hold no device number."""
+    metrics hold no device number.  The log has each job's seconds and
+    the reference's seconds by kind of step."""
+    import dataclasses
+
     import torch
 
     from ahsoka_tpu_torch.config import PhasingConfig
@@ -197,7 +225,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
 
     from phasebench import judge
     from phasebench.capture import Capture
-    from phasebench.jobs import make_pool
+    from phasebench.jobs import (job_chains, make_pool, ploidy_map_path,
+                                 read_ploidy_map)
     from phasebench.reference import phase as R
     from phasebench.reference.config import PhasingConfig as RefConfig
 
@@ -217,19 +246,27 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     try:
         pool_idx = [-1] + list(range(cell["pool_jobs"]))
         t = time.perf_counter()
-        paths = make_pool(cell["shape"], seed, pool_idx, workdir, workers)
+        planted = cell["config"].get("ploidy_map") == "planted"
+        paths = make_pool(cell["shape"], seed, pool_idx, workdir, workers,
+                          planted=settings if planted else None,
+                          warmup_shape=cell.get("warmup_shape"))
         # written back to disk now, not during the window
         os.sync()
         log(f"pool: {cell['pool_jobs']} jobs and a warm-up job generated "
             f"and synced in {time.perf_counter() - t:.3f} s by {workers} "
             "processes")
+        # each job's ploidy map, read before any job's timer starts
+        pmaps = [read_ploidy_map(ploidy_map_path(gfa)) if planted else None
+                 for gfa, _gaf in paths]
+        cfgs = [dataclasses.replace(cfg, ploidy_map=pm) if pm else cfg
+                for pm in pmaps]
         warm, pool = paths[0], paths[1:]
         capture = Capture()
         capture.install()
         capture.start(False)
         t = time.perf_counter()
         run_phase(warm[0], warm[1], os.path.join(workdir, "warmup"),
-                  config=cfg, device=dev, keep_going=True)
+                  config=cfgs[0], device=dev, keep_going=True)
         if cuda:
             torch.cuda.synchronize(dev)
         log(f"warm-up job: {time.perf_counter() - t:.3f} s")
@@ -259,8 +296,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                 art, error, m = None, "", None
                 try:
                     with _range(trace, "job"):
-                        art = run_phase(gfa, gaf, outstem, config=cfg,
-                                        device=dev, keep_going=True)
+                        art = run_phase(gfa, gaf, outstem,
+                                        config=cfgs[i + 1], device=dev,
+                                        keep_going=True)
                     if cuda:
                         torch.cuda.synchronize(dev)
                 except Exception as exc:  # noqa: BLE001 - counted failed
@@ -296,7 +334,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.empty_cache()
 
-        n_chains = cell["shape"]["num_chains"]
+        n_chains = job_chains(cell["shape"])
         attempted = sum(j["metrics"]["num_chains"] if j["metrics"]
                         else n_chains for j in jobs)
         failed = sum(j["metrics"]["chains_failed"] if j["metrics"]
@@ -341,19 +379,23 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             ids = judge.sample_chains(order, seed + i,
                                       cell["check"]["chains"])
             produced = judge.from_program(outstem, art_i, chains)
-            tasks += judge.tasks_of_job(gfa, gaf, produced, ids)
+            tasks += judge.tasks_of_job(gfa, gaf, produced, ids,
+                                        ploidy_map=pmaps[i + 1])
             staged += len(ids)
             threaded += len(produced.chains)
         for i in sample:
             if i not in {j["index"] for j in jobs}:
                 log(f"sampled job {i} was not reached in the window")
+        parts: Dict[str, float] = {}
         numbers = judge.judge_tasks(tasks, rconfig, workers,
-                                    device=ref_dev)
+                                    device=ref_dev, seconds=parts)
         del tasks
+        ref_s = time.perf_counter() - t
         log(f"reference: the files of {len(jobs)} jobs, the paths of "
             f"{threaded} chains and the stages of {staged} chains of "
-            f"{len(sample)} sampled jobs checked in "
-            f"{time.perf_counter() - t:.3f} s")
+            f"{len(sample)} sampled jobs checked in {ref_s:.3f} s; of "
+            "it, in this process: " + json.dumps(parts))
+        unchecked = {k: numbers.pop(k, 0) for k in judge.UNCHECKED}
         if not staged:
             numbers["chains_missing"] = numbers.get("chains_missing", 0) + 1
         # every chain of every window job has reads and bubbles to phase
@@ -399,6 +441,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             result["device"]["window_s"] = trace_obj.window_s
             result["breakdown"] = {"device_ops": trace_obj.device_ops(),
                                    "idle_gaps": trace_obj.idle_gaps()}
+        result["unchecked"] = unchecked
         result["checks"] = checks
         return result
     finally:
@@ -435,6 +478,8 @@ def main(argv=None) -> int:
         print(f"phasebench: modules loaded that may not be: {found}",
               file=sys.stderr)
         return 3
+    for k, v in result["unchecked"].items():
+        print(f"unchecked {k} = {v!r} (not a fault)", file=sys.stderr)
     for k, c in result["checks"].items():
         print(f"check {k} = {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

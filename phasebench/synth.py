@@ -1,8 +1,10 @@
 """Synthetic GFA/GAF generator of the benchmark's jobs.
 
-Frozen copy of ``ahsoka_tpu_torch/utils/synth.py`` (``SynthSpec`` and
-``write_synthetic``; its preset configurations are left out), so that a
-change to the program cannot move the benchmark's inputs.
+Frozen copy of ``ahsoka_tpu_torch/utils/synth.py`` (``SynthSpec``,
+``write_synthetic`` and, as ``chain_plan``, the rule of ``config5_plan``;
+its preset configurations are left out) and of ``load_truth`` and
+``ploidy_map_from_truth`` (``ahsoka_tpu_torch/utils/accuracy.py``), so
+that a change to the program cannot move the benchmark's inputs.
 
 Produces the workload shapes of BASELINE.md's measurement configs:
 
@@ -22,8 +24,9 @@ per-bubble switch errors at ``error_rate``.  Generation streams to disk
 from __future__ import annotations
 
 import dataclasses
+import math
 import random
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 
 def seg_name(node_id: int) -> str:
@@ -162,3 +165,69 @@ def _gaf_record(name: str, pathstr: str, identity: float,
     return (f"{name}\t{qlen}\t0\t{qlen}\t+\t{pathstr}\t{end - start}\t"
             f"{start}\t{end}\t100\t{end - start}\t60\ttp:A:P\tcm:i:10\t"
             f"NM:i:0\tid:f:{identity}\n")
+
+
+def chain_plan(num_chains: int, min_bubbles: int, max_bubbles: int,
+               ploidy_mix: Mapping, seed: int) -> List[Tuple[int, int]]:
+    """A ragged whole-genome chain plan, (bubbles, ploidy) a chain:
+    lengths log-uniform in [min_bubbles, max_bubbles], each chain's
+    ploidy drawn by ``ploidy_mix`` (ploidy -> share, the last ploidy in
+    ascending order taking what the others leave).  The rule of
+    ``config5_plan``, which is ``ploidy_mix`` {2: 0.70, 4: 0.29, 6:
+    0.01}; deterministic per seed."""
+    mix = sorted((int(k), float(v)) for k, v in ploidy_mix.items())
+    rng = random.Random(seed)
+    plan: List[Tuple[int, int]] = []
+    for _ in range(num_chains):
+        nb = int(round(math.exp(rng.uniform(math.log(min_bubbles),
+                                            math.log(max_bubbles)))))
+        r = rng.random()
+        k, edge = mix[-1][0], 0.0
+        for ploidy, share in mix[:-1]:
+            edge += share
+            if r < edge:
+                k = ploidy
+                break
+        plan.append((nb, k))
+    return plan
+
+
+def load_truth(truth_path: str) -> Dict[int, Tuple[int, int, int]]:
+    """``.truth`` file -> {branch_node_id: (chain, bubble, haplotype)}."""
+    info: Dict[int, Tuple[int, int, int]] = {}
+    with open(truth_path) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) != 3:
+                continue
+            c, h = int(parts[0]), int(parts[1])
+            for b, node in enumerate(parts[2].split(",")):
+                info[int(node)] = (c, b, h)
+    return info
+
+
+def ploidy_map_from_truth(allele_paths, truth_path: str
+                          ) -> Dict[int, int]:
+    """Engine-chain-id -> planted ploidy, by matching each engine
+    chain's branch nodes against the truth table: what a user assigns
+    per chain after reading ``only-bubbles``' output."""
+    info = load_truth(truth_path)
+    planted_k: Dict[int, int] = {}
+    for c, _b, h in info.values():
+        planted_k[c] = max(planted_k.get(c, 0), h + 1)
+    out: Dict[int, int] = {}
+    for chain_id, bubbles in allele_paths.items():
+        found = None
+        for paths in bubbles.values():
+            for p in paths:
+                for n in p:
+                    if n in info:
+                        found = info[n][0]
+                        break
+                if found is not None:
+                    break
+            if found is not None:
+                break
+        if found is not None:
+            out[chain_id] = planted_k[found]
+    return out

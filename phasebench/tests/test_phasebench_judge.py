@@ -202,7 +202,9 @@ def test_a_short_run_on_the_card_is_correct():
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    r = run.run_cell(tiny_cell(), SEED, 0.5, True, device="cuda", workers=2)
+    # the tetraploid cell: the device's per-layer metrics are read there
+    r = run.run_cell(tiny_cell("tetraploid.chains200"), SEED, 0.5, True,
+                     device="cuda", workers=2)
     assert r["correct"], r["checks"]
     assert r["device"]["platform"] == "gpu" and r["device"]["busy_s"] > 0
     assert "device.idle_share" in r["metrics"]
